@@ -1,0 +1,207 @@
+"""Schur-complement reduction of the camera system, dense3 family
+(PyTorch counterpart of the planar functions of psba_tpu.core.schur).
+
+Everything per point is planar: V blocks are [3, 3, Pp] and the stacked
+off-diagonal factor comes as three [6C, Pp] planes ZWk[6c+i, p] =
+W_(c,p)[i, k] (ops.linearize_dense). With that layout
+
+  ZY_j   = sum_m ZW_m * Vinv[m, j]                 (broadcast FMAs)
+  S      = blockdiag(U) - sum_j ZY_j @ ZW_j^T      [6C, 6C]
+  ea     = ga - sum_j ZY_j @ gb_j                  [C, 6]
+  eb_j   = gb_j - ZW_j^T dpa;  dpb_k = sum_j Vinv[j, k] eb_j
+
+The large products are plain matrix products (cuBLAS on the card), pinned
+to true float32: TF32 would keep about three decimal digits of S, which
+caps how far the float32 path converges (the reference pins
+Precision.HIGHEST for the same reason).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _pin_fp32_matmul() -> None:
+    """Keep float32 products in full float32 (no TF32) on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _block_scale(a, b, c, d, e, f):
+    """Per-block power-of-two scale 2^-floor(log2(max|entry|)) and its cube.
+
+    The power of two makes the scaling exact: the inverse of the scaled
+    block equals the unscaled one whenever the latter does not overflow,
+    and badly scaled blocks (diag ~1e12, mu ~1e20) no longer overflow the
+    float32 determinant. In float32 the exponent is read from the bits."""
+    m = torch.maximum(
+        torch.maximum(torch.maximum(a.abs(), b.abs()), c.abs()),
+        torch.maximum(torch.maximum(d.abs(), e.abs()), f.abs()),
+    )
+    m_safe = torch.where(m > 0.0, m, torch.ones_like(m))
+    if m_safe.dtype == torch.float32:
+        # m_safe > 0, so the sign bit is clear and >> is a logical shift;
+        # a subnormal m maps to exponent 0 -> inv_m = 2^127
+        eb = m_safe.view(torch.int32) >> 23
+        inv_bits = torch.clamp(254 - eb, 1, 254) << 23
+        inv_m = inv_bits.to(torch.int32).view(torch.float32)
+    else:
+        inv_m = torch.exp2(-torch.floor(torch.log2(m_safe)))
+    return inv_m, inv_m * inv_m * inv_m
+
+
+def _pivoted_det3_rows(m):
+    """Partial-pivot Gaussian determinant of a 3x3 of planar [P] vectors
+    (m[i][j] is row i, column j): pivots chosen by magnitude, row-swap
+    signs tracked."""
+    r0, r1, r2 = list(m[0]), list(m[1]), list(m[2])
+    sign = torch.ones_like(r0[0])
+    c0 = (r0[0].abs(), r1[0].abs(), r2[0].abs())
+    p1 = c0[1] > torch.maximum(c0[0], c0[2])
+    p2 = (~p1) & (c0[2] > c0[0])
+
+    def swap(ra, rb, pred):
+        return (
+            [torch.where(pred, y, x) for x, y in zip(ra, rb)],
+            [torch.where(pred, x, y) for x, y in zip(ra, rb)],
+        )
+
+    r0, r1 = swap(r0, r1, p1)
+    r0, r2 = swap(r0, r2, p2)
+    sign = torch.where(p1 | p2, -sign, sign)
+
+    a00 = r0[0]
+    nz0 = a00 != 0.0
+    safe00 = torch.where(nz0, a00, torch.ones_like(a00))
+    zero = torch.zeros_like(a00)
+    l1 = torch.where(nz0, r1[0] / safe00, zero)
+    l2 = torch.where(nz0, r2[0] / safe00, zero)
+    b11 = r1[1] - l1 * r0[1]
+    b12 = r1[2] - l1 * r0[2]
+    b21 = r2[1] - l2 * r0[1]
+    b22 = r2[2] - l2 * r0[2]
+
+    swap2 = b21.abs() > b11.abs()
+    t11 = torch.where(swap2, b21, b11)
+    t12 = torch.where(swap2, b22, b12)
+    t21 = torch.where(swap2, b11, b21)
+    t22 = torch.where(swap2, b12, b22)
+    sign = torch.where(swap2, -sign, sign)
+
+    nz1 = t11 != 0.0
+    safe11 = torch.where(nz1, t11, torch.ones_like(t11))
+    c22 = t22 - torch.where(nz1, t21 / safe11, zero) * t12
+    return sign * a00 * t11 * c22
+
+
+def inv3x3_planar3(Vp: torch.Tensor):
+    """Batched symmetric 3x3 inverse on planar [3, 3, P] blocks by
+    cofactors, with the pivoted determinant as fallback where the closed
+    form's |det| < 1e-16 (unscaled). The fallback is only evaluated when
+    some block needs it. Returns (Vinv [3, 3, P], ok) with ok a 0-d bool
+    tensor: False when any block is singular (|scaled det| <= 8 eps or
+    non-finite)."""
+    a, b, c = Vp[0, 0], Vp[0, 1], Vp[0, 2]
+    d, e, f = Vp[1, 1], Vp[1, 2], Vp[2, 2]
+    inv_m, inv_m3 = _block_scale(a, b, c, d, e, f)
+    a, b, c = a * inv_m, b * inv_m, c * inv_m
+    d, e, f = d * inv_m, e * inv_m, f * inv_m
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    det = a * co00 + b * co01 + c * co02
+    need_fallback = det.abs() < 1e-16 * inv_m3
+    if bool(need_fallback.any()):
+        det_piv = _pivoted_det3_rows(((a, b, c), (b, d, e), (c, e, f)))
+        det = torch.where(need_fallback, det_piv, det)
+    eps = torch.finfo(det.dtype).eps
+    blk_ok = torch.isfinite(det) & (det.abs() > 8.0 * eps)
+    ok = torch.all(blk_ok)
+    one = torch.ones_like(det)
+    inv_det = torch.where(
+        blk_ok, 1.0 / torch.where(blk_ok, det, one), torch.zeros_like(det)
+    )
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    Vinv = torch.stack([
+        torch.stack([co00, co01, co02], dim=0),
+        torch.stack([co01, co11, co12], dim=0),
+        torch.stack([co02, co12, co22], dim=0),
+    ], dim=0) * (inv_det * inv_m)[None, None]
+    return Vinv, ok
+
+
+def _eye3(Vp: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=Vp.dtype, device=Vp.device)[:, :, None]
+
+
+def damp_v_planar(Vp: torch.Tensor, mu) -> torch.Tensor:
+    """Additive diagonal damping of planar [3, 3, P] point blocks."""
+    return Vp + mu * _eye3(Vp)
+
+
+def damp_v_planar_marquardt(Vp: torch.Tensor, mu) -> torch.Tensor:
+    """Multiplicative damping: diagonals become d*(1+mu); zero diagonals
+    fall back to additive mu."""
+    d = torch.where(Vp > 0.0, Vp, torch.ones_like(Vp))
+    return Vp + mu * (d * _eye3(Vp))
+
+
+def diag_v_planar(Vp: torch.Tensor, n_pts: int) -> torch.Tensor:
+    """Diagonal of planar V blocks as [P, 3]."""
+    return torch.stack([Vp[0, 0], Vp[1, 1], Vp[2, 2]], dim=1)[:n_pts]
+
+
+def max_diag_planar(U: torch.Tensor, Vp: torch.Tensor,
+                    n_pts: int) -> torch.Tensor:
+    """max over the U and planar-V diagonals; padded columns excluded."""
+    du = torch.max(torch.diagonal(U, dim1=-2, dim2=-1))
+    dv = torch.max(torch.stack(
+        [Vp[0, 0, :n_pts], Vp[1, 1, :n_pts], Vp[2, 2, :n_pts]]
+    ))
+    return torch.maximum(du, dv)
+
+
+def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor):
+    """S = blockdiag(U) - sum_j ZY_j @ ZW_j^T with ZY_j = sum_m ZW_m *
+    Vinv[m, j]. U [C, 6, 6] must already be damped. Returns (S [6C, 6C],
+    ZY3), ZY3 reused by reduced_rhs_dense3."""
+    _pin_fp32_matmul()
+    C = U.shape[0]
+    ZY3 = tuple(
+        ZW3[0] * Vinv[0, j][None]
+        + ZW3[1] * Vinv[1, j][None]
+        + ZW3[2] * Vinv[2, j][None]
+        for j in range(3)
+    )
+    off = torch.matmul(ZY3[0], ZW3[0].T)
+    off += torch.matmul(ZY3[1], ZW3[1].T)
+    off += torch.matmul(ZY3[2], ZW3[2].T)
+    S = (-off).reshape(C, 6, C, 6)
+    # the diagonal view over the two camera axes is [6, 6, C]
+    S.diagonal(dim1=0, dim2=2).add_(U.permute(1, 2, 0))
+    return S.reshape(6 * C, 6 * C), ZY3
+
+
+def reduced_rhs_dense3(ga: torch.Tensor, gbp: torch.Tensor, ZY3):
+    """ea = ga - sum_j ZY_j @ gbp[j]; gbp is [3, Pp]. Returns [C, 6]."""
+    _pin_fp32_matmul()
+    term = sum(torch.matmul(ZY3[j], gbp[j]) for j in range(3))
+    return ga - term.reshape(-1, 6)
+
+
+def back_substitute_dense3(gbp: torch.Tensor, ZW3, Vinv: torch.Tensor,
+                           dpa: torch.Tensor) -> torch.Tensor:
+    """eb_j = gbp[j] - ZW_j^T dpa; dpb_k = sum_j Vinv[j, k] eb_j.
+    Returns dpb [3, Pp]."""
+    _pin_fp32_matmul()
+    v = dpa.reshape(-1)
+    eb = [gbp[j] - torch.matmul(v, ZW3[j]) for j in range(3)]
+    return torch.stack(
+        [
+            Vinv[0, k] * eb[0] + Vinv[1, k] * eb[1] + Vinv[2, k] * eb[2]
+            for k in range(3)
+        ],
+        dim=0,
+    )
