@@ -3,19 +3,24 @@
 Same layout and module names as psba_tpu, on torch tensors with an explicit
 device and dtype:
 
+  constants  solver constants and iteration flags
+  problem    BAProblem, the host-side problem container (numpy)
+  io/        SBA text, BAL and synthetic problem readers (numpy)
+  utils/     phase timing and checkpointing
   models/    quaternion and pinhole camera models
-  core/      residual, analytic Jacobian, dense3 Schur reduction, SPD solve
+  core/      residual, analytic Jacobian and jmultiply, dense3 Schur
+             reduction, SPD solve, the GMW modified Cholesky
   ops/       hand-written Hopper kernels (csrc/*.cu, built at first use by
              ops/_build.py), each beside its plain PyTorch version
-  solvers/   SolverConfig / ProblemArrays / OptState, the dense3 LM loop and
-             the `solve` controller
+  solvers/   SolverConfig / ProblemArrays / OptState, the dense3 LM and TR
+             loops and the hybrid `solve` controller
   convert    carry problem and state tensors across from psba_tpu
 
-The problem container and readers are psba_tpu's jax-free host layer
-(psba_tpu.problem, psba_tpu.io); this package never imports jax.
+`solve` runs on the CUDA device unless the caller passes device="cpu". This
+package imports neither jax nor any module of psba_tpu.
 """
 
-from psba_tpu.problem import BAProblem
+from psba_tpu_torch.problem import BAProblem
 
 __all__ = ["BAProblem", "solve"]
 

@@ -66,3 +66,15 @@ def jacobians(K, q0, cams, pts, cam_idx, pt_idx, clamp: bool = False):
     A = torch.cat([A_rot, P], dim=-1)                          # [O,2,6]
     B = torch.einsum("oij,ojk->oik", P, quat_to_matrix(q))     # [O,2,3]
     return A, B
+
+
+def jmultiply(A, B, x_cams, x_pts, cam_idx, pt_idx) -> torch.Tensor:
+    """(J x)_o = A_o x_cam[j(o)] + B_o x_pt[i(o)]  -> [O, 2].
+
+    The per-observation form of the reference's J x product: unobserved
+    (point, camera) slots contribute nothing to the TR solver's dot
+    products, so only the observations are formed."""
+    xc = x_cams.reshape(-1, 6)[cam_idx]
+    xp = x_pts.reshape(-1, 3)[pt_idx]
+    return (torch.einsum("oij,oj->oi", A, xc)
+            + torch.einsum("oij,oj->oi", B, xp))

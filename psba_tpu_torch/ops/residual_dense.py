@@ -1,7 +1,8 @@
-"""Dense-grid trial-step gain for the LM acceptance test.
+"""Dense-grid trial-step gain and Jacobian Gram matrix.
 
-Port of psba_tpu.ops.residual_dense.gain_dense_pallas. The acceptance test
-needs two scalars per trial step:
+Ports of psba_tpu.ops.residual_dense.gain_dense_pallas and
+jgram_dense_pallas. The LM / TR acceptance test needs two scalars per trial
+step:
 
   gain   = sum over observed cells of (eo - en)(eo + en)
   new_l2 = sum over observed cells of en^2
@@ -10,8 +11,18 @@ with eo / en the residuals at the old and the new parameters. The factored
 form is exact in real numbers and keeps the difference of two nearly equal
 sums meaningful in float32 near convergence. No [O, 2] residual is stored.
 
-`gain_dense` launches csrc/gain_dense.cu on CUDA tensors (float32) and runs
-`gain_dense_plain` on CPU tensors.
+The TR phase needs the curvature of its model along a few directions x_a
+(camera parts dirs_c [n, C, 6], planar point parts dirs_p [n, 3, Pd]):
+
+  G[a, b] = <J x_a, J x_b>
+
+summed cell by cell over the products of the per-residual-row terms J x,
+the conditioning of the reference's explicit J p; the algebraically equal
+block form x^T [[U, W], [W^T, V]] x cancels in float32 when |J x| is small.
+
+`gain_dense` / `jgram_dense` launch csrc/gain_dense.cu / csrc/jgram_dense.cu
+on CUDA tensors (float32) and run `gain_dense_plain` / `jgram_dense_plain`
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,9 +35,13 @@ from psba_tpu_torch.ops import _build
 from psba_tpu_torch.ops.linearize_dense import (
     CAM_CHUNK,
     PTILE,
+    _cell_model,
     camera_rows,
     cell_residual,
 )
+
+# largest number of directions jgram_dense takes (TR uses 1 and 2)
+JGRAM_MAX_N = 4
 
 
 def gain_dense_plain(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv,
@@ -93,3 +108,97 @@ def gain_dense(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv, valid_d,
 
 
 gain_dense.launches = 0
+
+
+def _sym(tri, n):
+    """Upper-triangle entries (row-major) -> symmetric [n, n], a stack of
+    views (no index tensor copied to the device)."""
+    idx, pos = {}, 0
+    for a in range(n):
+        for b in range(a, n):
+            idx[a, b] = idx[b, a] = pos
+            pos += 1
+    return torch.stack([tri[idx[a, b]] for a in range(n)
+                        for b in range(n)]).reshape(n, n)
+
+
+def jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
+                      clamp=False):
+    """Plain PyTorch version: G [n, n] with G[a, b] = <J x_a, J x_b> over the
+    observed cells of the [C, P] grid; dirs_p may be wider than P (padded
+    lanes are ignored)."""
+    C, P = valid_d.shape
+    n = dirs_c.shape[0]
+    x = pts.T
+    zero = torch.zeros_like(valid_d)
+    A, B, _exu, _exv = _cell_model(camera_rows(K, q0, cams), x[0:1], x[1:2],
+                                   x[2:3], zero, zero, valid_d, clamp)
+    jx = []
+    for a in range(n):
+        dc, dp = dirs_c[a], dirs_p[a, :, :P]
+        jx.append([
+            sum(A[r][i] * dc[:, i:i + 1] for i in range(6))
+            + sum(B[r][k] * dp[k:k + 1] for k in range(3))
+            for r in range(2)
+        ])
+    tri = torch.stack([
+        (jx[a][0] * jx[b][0] + jx[a][1] * jx[b][1]).sum()
+        for a in range(n) for b in range(a, n)
+    ])
+    return _sym(tri, n)
+
+
+def _jgram_kernel():
+    lib = _build.library("jgram_dense")
+    if (lib.psba_jgram_dense_ptile() != PTILE
+            or lib.psba_jgram_dense_cam_chunk() != CAM_CHUNK
+            or lib.psba_jgram_dense_max_n() != JGRAM_MAX_N):
+        raise RuntimeError("jgram_dense.cu constants differ from "
+                           "psba_tpu_torch.ops.residual_dense")
+    fn = lib.psba_jgram_dense
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + (
+        [ctypes.c_void_p] * 2
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False):
+    """G [n, n] = <J x_a, J x_b> on the dense grid (coefficient-free: the
+    TR scalars of B = 2 J^T J are 2 G). dirs_c [n, C, 6], dirs_p [n, 3, Pd]
+    with Pd >= P (the planar width of linearize_dense, or P).
+
+    CPU tensors run the plain version. CUDA tensors (float32, contiguous,
+    n <= JGRAM_MAX_N) launch csrc/jgram_dense.cu and count one launch."""
+    if valid_d.device.type == "cpu":
+        return jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
+                                 clamp=clamp)
+    dev = _build.cuda_inputs(
+        "jgram_dense", K=K, q0=q0, cams=cams, pts=pts, valid_d=valid_d,
+        dirs_c=dirs_c, dirs_p=dirs_p,
+    )
+    C, P = valid_d.shape
+    n, Pd = dirs_c.shape[0], dirs_p.shape[-1]
+    if not 1 <= n <= JGRAM_MAX_N:
+        raise ValueError(f"jgram_dense: n = {n} directions, the kernel takes "
+                         f"1 to {JGRAM_MAX_N}")
+    if (K.shape != (C, 5) or q0.shape != (C, 4) or cams.shape != (C, 6)
+            or pts.shape != (P, 3) or dirs_c.shape != (n, C, 6)
+            or dirs_p.shape != (n, 3, Pd) or Pd < P):
+        raise ValueError("jgram_dense: inconsistent shapes")
+    fn = _jgram_kernel()
+    n_blocks = (-(-P // PTILE)) * (-(-C // CAM_CHUNK))
+    kq = torch.cat([K, q0], dim=1).contiguous()
+    part = torch.empty((n_blocks, n * (n + 1) // 2), dtype=torch.float32,
+                       device=dev)
+    err = fn(
+        kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), valid_d.data_ptr(),
+        dirs_c.data_ptr(), dirs_p.data_ptr(), n, C, P, Pd, int(bool(clamp)),
+        part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "jgram_dense")
+    jgram_dense.launches += 1
+    return _sym(part.sum(0), n)
+
+
+jgram_dense.launches = 0

@@ -1,11 +1,13 @@
 """Hybrid LM <-> TR controller (PyTorch counterpart of
-psba_tpu.solvers.hybrid), LM phase only.
+psba_tpu.solvers.hybrid).
 
-`solve` runs damping resolution, OptState.init and the dense3 LM phase,
-with checkpoint / resume. The TR phase is the port's next slice: a run that
-reaches it (LM's ITER_TURN_TO_TR, or start="tr") raises
-NotImplementedError rather than stopping early, and so do the float64
-polish and the pair encoding.
+`solve` runs damping resolution and OptState.init, then alternates the
+dense3 LM phase (solvers.lm) and the dense3 TR phase (solvers.tr) until
+either returns a flag other than the switch requests. Each switch starts
+the new phase with fresh phase scalars, as the reference calls levmar() /
+trust_region() afresh. Checkpoint / resume covers both phases. The float64
+polish and the pair encoding raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -16,10 +18,10 @@ import time
 import numpy as np
 import torch
 
-from psba_tpu import constants as CC
-from psba_tpu.problem import BAProblem
-from psba_tpu.utils.timing import PhaseTimers
+from psba_tpu_torch import constants as CC
+from psba_tpu_torch.problem import BAProblem
 from psba_tpu_torch.solvers.lm import lm_fresh_aux, lm_run
+from psba_tpu_torch.solvers.tr import tr_fresh_aux, tr_run
 from psba_tpu_torch.solvers.types import (
     OptState,
     ProblemArrays,
@@ -27,8 +29,8 @@ from psba_tpu_torch.solvers.types import (
     resolve_damping,
     torch_dtype,
 )
-
-_TR_SLICE = "TR phase: slice 2, ROADMAP Queue 1 item 9"
+from psba_tpu_torch.utils import checkpoint as ckpt
+from psba_tpu_torch.utils.timing import PhaseTimers
 
 
 @dataclasses.dataclass
@@ -44,19 +46,29 @@ class SolveResult:
     flag_name: str
     wall_s: float
     phases: list  # [(phase, itno_after, flag_after)]
-    history: np.ndarray | None = None  # [max_iters, 6] when record_history
+    history: np.ndarray | None = None  # [max_iters, 6] when record_history:
+    # LM rows (itno, ex_l2, rho, mu, nan, nan), TR rows (itno, act, rho,
+    # lambda, delta, p_norm)
     phase_report: str = ""
     resolved_damping: str = ""  # "additive" | "marquardt" after "auto"
+    phase_seconds: dict = dataclasses.field(default_factory=dict)  # wall
+    # seconds per phase name, summed over the phase's runs
 
     def format_history(self) -> str:
-        """Reference-style per-iteration progress lines (LM rows only)."""
+        """Reference-style per-iteration progress lines (LM and TR rows)."""
         if self.history is None:
             return "(no history recorded)"
-        return "\n".join(
-            f"itno={int(itno)}\tErr={err:.9E}\trho={rho:f}\tmu={mul:f}"
-            for itno, err, rho, mul, _dk, _pn in self.history
-            if not np.isnan(itno)
-        )
+        lines = []
+        for itno, err, rho, mul, dk, pn in self.history:
+            if np.isnan(itno):
+                continue
+            if np.isnan(dk):
+                lines.append(f"itno={int(itno)}\tErr={err:.9E}\trho={rho:f}"
+                             f"\tmu={mul:f}")
+            else:
+                lines.append(f"itno={int(itno)}\tErr={err:.9E}\tDelta={dk:f}"
+                             f"\tRho={rho:f}\tnorm_p={pn:f}\tLambda={mul:E}")
+        return "\n".join(lines)
 
     def __str__(self):
         return (
@@ -66,39 +78,54 @@ class SolveResult:
         )
 
 
+def _device(device) -> torch.device:
+    """The solve's device: CUDA unless the caller names another. Without a
+    card, no device is an error, not a quiet fall-back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "psba_tpu_torch.solve runs on the CUDA device by default and "
+            "torch sees none; pass device=\"cpu\" to run the plain PyTorch "
+            "versions of the kernels on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def solve(
     problem: BAProblem,
     config: SolverConfig | None = None,
     dtype=None,
-    device="cpu",
+    device=None,
     start: str = "lm",
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 8,
     polish_iters: int = 0,
     schur: str = "auto",
 ) -> SolveResult:
-    """LM optimization of a BAProblem on `device`.
+    """Hybrid LM / TR optimization of a BAProblem on `device` (default: the
+    CUDA device; pass device="cpu" for the plain PyTorch versions).
 
     `dtype` (torch or numpy) casts the problem; default keeps its own.
-    On a CUDA device the hand-written kernels need float32.
-    `checkpoint_dir` enables checkpointing with resume from the newest
-    checkpoint; `checkpoint_every` > 0 also cuts the phase into chunks of
-    that many iterations and saves the phase scalars at each boundary, so
-    a resume is exact mid-phase. Points keep the caller's order
-    (point_order "natural")."""
+    On a CUDA device the hand-written kernels need float32. `start` is the
+    first phase, "lm" or "tr". `checkpoint_dir` enables checkpointing with
+    resume from the newest checkpoint; `checkpoint_every` > 0 also cuts each
+    phase into chunks of that many iterations and saves the phase scalars at
+    each boundary, so a resume is exact mid-phase. Points keep the caller's
+    order (point_order "natural")."""
     dt = torch_dtype(problem.pts.dtype if dtype is None else dtype)
-    device = torch.device(device)
-    if start != "lm":
-        raise NotImplementedError(f"start={start!r}: {_TR_SLICE}")
+    device = _device(device)
+    if start not in ("lm", "tr"):
+        raise ValueError(f"start={start!r}: 'lm' or 'tr'")
     if polish_iters > 0:
         raise NotImplementedError(
             "polish_iters > 0: the float64 polish needs the XLA-form dense "
-            "path, not ported yet (ROADMAP Queue 1 item 10)"
+            "path, not ported yet (ROADMAP Queue 1 item 11)"
         )
     if device.type == "cuda" and dt != torch.float32:
         raise NotImplementedError(
             f"{dt} on CUDA: the kernels are float32; the float64 dense path "
-            "is not ported yet (ROADMAP Queue 1 item 10)"
+            "is not ported yet (ROADMAP Queue 1 item 11)"
         )
     cfg = config or SolverConfig.for_dtype(dt)
     point_order = "natural"
@@ -109,11 +136,10 @@ def solve(
     cfg = resolve_damping(cfg, pa, cams, pts)
 
     chunk = int(checkpoint_every) if checkpoint_dir else 0
+    phase = start
     resume_itno = 0
     resume_aux = None
     if checkpoint_dir:
-        from psba_tpu.utils import checkpoint as ckpt
-
         restored = ckpt.load_latest(checkpoint_dir)
         if restored is not None:
             r_cams, r_pts, meta = restored
@@ -126,9 +152,11 @@ def solve(
                     "array — delete the checkpoint or rerun with the "
                     "original settings"
                 )
-            if meta.get("phase", start) != "lm":
+            phase = meta.get("phase", start)
+            if phase not in ("lm", "tr"):
                 raise NotImplementedError(
-                    f"resume into phase {meta.get('phase')!r}: {_TR_SLICE}"
+                    f"resume into phase {phase!r}: the float64 polish is "
+                    "not ported yet (ROADMAP Queue 1 item 11)"
                 )
             cams, pts = as_t(r_cams), as_t(r_pts)
             resume_itno = int(meta.get("itno", 0))
@@ -145,35 +173,43 @@ def solve(
     phases = []
     while True:
         if chunk and state.aux is None:
-            state.aux = lm_fresh_aux(dt, device)
-        with timers.phase("lm"):
+            state.aux = (lm_fresh_aux(dt, device) if phase == "lm"
+                         else tr_fresh_aux(cfg, dt, device))
+        runner = lm_run if phase == "lm" else tr_run
+        with timers.phase(phase):
             cap = min(state.itno + chunk, cfg.max_iters) if chunk else None
-            state = lm_run(pa, state, cfg, iter_cap=cap)
+            state = runner(pa, state, cfg, iter_cap=cap)
         flag = state.flag
-        if flag == CC.ITER_TURN_TO_TR:
-            raise NotImplementedError(
-                f"LM handed over to TR at iteration {state.itno}: "
-                f"{_TR_SLICE}"
-            )
+        # chunk boundary: budget left and no phase-ending flag
         mid_phase = (
             chunk > 0
             and flag == CC.ITER_CONTINUE
             and state.itno < cfg.max_iters
         )
         if not mid_phase:
-            phases.append(("lm", state.itno, flag))
+            phases.append((phase, state.itno, flag))
+        next_phase = None
+        if mid_phase:
+            next_phase = phase
+        elif phase == "lm" and flag == CC.ITER_TURN_TO_TR:
+            next_phase = "tr"
+        elif phase == "tr" and flag == CC.ITER_TURN_TO_LM:
+            next_phase = "lm"
         if checkpoint_dir:
-            from psba_tpu.utils import checkpoint as ckpt
-
             ckpt.save(
                 checkpoint_dir, state.cams.cpu().numpy(),
-                state.pts.cpu().numpy(), state.itno, flag, "lm",
+                state.pts.cpu().numpy(), state.itno, flag,
+                next_phase or phase,
                 extra={"ex_l2": float(state.ex_l2),
                        "point_order": point_order},
                 aux=state.aux.cpu().numpy() if mid_phase else None,
             )
-        if not mid_phase:
+        if next_phase is None:
             break
+        if not mid_phase:
+            # a new phase starts with fresh scalars
+            state.aux = None
+        phase = next_phase
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -195,4 +231,5 @@ def solve(
         phases=phases,
         history=state.history,
         phase_report=timers.report(),
+        phase_seconds=dict(timers.totals),
     )

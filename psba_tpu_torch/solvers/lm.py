@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from psba_tpu import constants as CC
+from psba_tpu_torch import constants as CC
 from psba_tpu_torch.core.linalg import spd_solve
 from psba_tpu_torch.core.schur import (
     back_substitute_dense3,
@@ -73,7 +73,7 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     if cfg.backend == "xla":
         raise NotImplementedError(
             "backend='xla' (the XLA-form dense path): not ported yet "
-            "(ROADMAP Queue 1 item 10)"
+            "(ROADMAP Queue 1 item 11)"
         )
     if cfg.s_precision != "highest":
         raise NotImplementedError(

@@ -9,7 +9,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from psba_tpu import constants as C
+from psba_tpu_torch import constants as C
+from psba_tpu_torch.ops.linearize_stream import (
+    StreamTables,
+    build_stream_tables,
+)
 
 # Dense-Schur cap in (camera x point) cells. The dense path holds the three
 # ZW planes and the three ZY planes (144 bytes per cell in float32) plus
@@ -119,14 +123,18 @@ class ProblemArrays:
     obs_du: torch.Tensor    # [C, P] measurements (u), 0 where unseen
     obs_dv: torch.Tensor    # [C, P] measurements (v), 0 where unseen
     valid_d: torch.Tensor   # [C, P] 1.0 where the cell has an observation
+    # camera-sorted walk of the observation stream (the TR phase's U / ga
+    # kernel, ops.linearize_stream), built once here
+    stream: StreamTables
 
     @staticmethod
     def from_problem(prob, dtype=None, device="cpu",
                      schur="auto") -> "ProblemArrays":
-        """Build the tensors of a psba_tpu.problem.BAProblem on `device` in
-        `dtype` (default: the problem's own). Only the dense encoding
-        exists in this port; "pairs", or a problem above
-        DENSE_MAX_ENTRIES cells, raises NotImplementedError."""
+        """Build the tensors of a psba_tpu_torch.problem.BAProblem on
+        `device` in `dtype` (default: the problem's own), with the stream
+        tables of the camera-ordered walk. Only the dense encoding exists
+        in this port; "pairs", or a problem above DENSE_MAX_ENTRIES cells,
+        raises NotImplementedError."""
         if schur not in ("auto", "dense", "pairs"):
             raise ValueError(f"schur={schur!r}")
         if schur == "pairs" or (
@@ -150,6 +158,8 @@ class ProblemArrays:
             K=f(prob.K), q0=f(prob.q0), obs=f(prob.obs),
             cam_idx=i(prob.cam_idx), pt_idx=i(prob.pt_idx),
             obs_du=f(du), obs_dv=f(dv), valid_d=f(vd),
+            stream=build_stream_tables(prob.cam_idx, prob.pt_idx,
+                                       prob.n_cams, device=device),
         )
 
     @property
@@ -163,13 +173,17 @@ class ProblemArrays:
 
 @dataclasses.dataclass
 class OptState:
-    """Parameters and solver scalars shared by the LM phase and `solve`.
+    """Parameters and solver scalars shared by the LM and TR phases and
+    `solve`.
 
     `ex` is the residual at phase entry: the dense path computes trial
     gains on the grid and never refreshes it mid-phase (as the reference).
-    `history` rows are (itno, ex_l2, rho, mu, delta, p_norm), NaN where
-    unused. `aux` is the LM phase-scalar carry (mu, nu, p_l2, good_cnt,
-    first, 0) for chunked checkpointing: present means resume mid-phase."""
+    `history` rows are (itno, ex_l2, rho, mu, nan, nan) for LM iterations
+    and (itno, act, rho, lambda, delta, p_norm) for TR iterations, NaN
+    where unused. `aux` is the phase-scalar carry for chunked
+    checkpointing, LM (mu, nu, p_l2, good_cnt, first, 0) or TR (delta,
+    lambda, origin_lambda, nu, notgood, good_iters): present means resume
+    mid-phase."""
 
     cams: torch.Tensor           # [C, 6]
     pts: torch.Tensor            # [P, 3]

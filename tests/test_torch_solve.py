@@ -1,12 +1,14 @@
-"""Port against reference: the slice end to end, on CPU tensors.
+"""Port against reference: the LM phase end to end, on CPU tensors, and the
+boundaries of the port.
 
-psba_tpu_torch.solve (plain PyTorch versions of the kernels on the CPU)
+psba_tpu_torch.solve (plain PyTorch versions of the kernels, device="cpu")
 against psba_tpu.solvers.hybrid.solve with backend="pallas" (the dense3
 path, its Pallas kernels in interpret mode), both in float32 with the LM->TR
 switch disabled. Tolerances: the first five history rows' ex_l2 to 1e-4
 relative and final_l2 to 1e-3 (float32 sums taken in another order); the
-parameters to 1e-3 of their scale. Plus the slice's boundaries: the port
-never imports jax, and it raises where the next slices begin.
+parameters to 1e-3 of their scale. Plus the port's boundaries: it never
+imports jax or psba_tpu, `solve` needs a device where there is no card, and
+it raises where the next slices begin.
 """
 
 import os
@@ -24,6 +26,7 @@ from psba_tpu.solvers import SolverConfig as JSolverConfig
 from psba_tpu.solvers.hybrid import solve as jsolve
 from psba_tpu_torch.solvers import SolverConfig
 from psba_tpu_torch.solvers.hybrid import solve
+from psba_tpu_torch.utils import checkpoint as ckpt
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -35,9 +38,21 @@ def prob_mini_bal():
     return bal_to_problem(str(REPO / "tests" / "data" / "mini_bal.txt"))
 
 
+def _port(prob):
+    """The port's BAProblem with the arrays of a psba_tpu one."""
+    from psba_tpu_torch.problem import BAProblem
+
+    return BAProblem(K=prob.K, q0=prob.q0, cams=prob.cams, pts=prob.pts,
+                     obs=prob.obs, cam_idx=prob.cam_idx, pt_idx=prob.pt_idx)
+
+
 def _cfg(**kw):
     return SolverConfig.for_dtype(torch.float32, lm_switch_count=10_000,
                                   record_history=True, **kw)
+
+
+def _solve(prob, cfg, **kw):
+    return solve(_port(prob), cfg, dtype=torch.float32, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("fixture", ["prob_synth", "prob_mini_bal"])
@@ -46,7 +61,7 @@ def test_solve_matches_reference(fixture, request):
     ref = jsolve(prob, JSolverConfig.for_dtype(
         jnp.float32, backend="pallas", lm_switch_count=10_000,
         record_history=True), dtype=jnp.float32)
-    res = solve(prob, _cfg(), dtype=torch.float32)
+    res = _solve(prob, _cfg())
     assert res.flag == ref.flag
     assert res.resolved_damping == ref.resolved_damping
     np.testing.assert_allclose(res.history[:5, 0], ref.history[:5, 0])
@@ -65,7 +80,7 @@ def test_marquardt_damping_runs(prob_synth):
     ref = jsolve(prob_synth, JSolverConfig.for_dtype(
         jnp.float32, backend="pallas", damping="marquardt",
         record_history=True), dtype=jnp.float32)
-    res = solve(prob_synth, _cfg(damping="marquardt"), dtype=torch.float32)
+    res = _solve(prob_synth, _cfg(damping="marquardt"))
     assert res.flag == ref.flag
     # Marquardt lands on the optimum in two steps here; the DP_NO_CHANGE
     # stop after that is decided by steps at the float32 noise floor, so
@@ -104,15 +119,13 @@ def test_state_carries_across(prob_mini_bal):
 def test_chunked_checkpoint_run_is_exact(prob_synth, tmp_path):
     """Chunked runs (iter_cap + aux carry) follow the unchunked trajectory
     exactly, and each chunk boundary writes a resumable checkpoint."""
-    whole = solve(prob_synth, _cfg(), dtype=torch.float32)
-    chunked = solve(prob_synth, _cfg(), dtype=torch.float32,
-                    checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    whole = _solve(prob_synth, _cfg())
+    chunked = _solve(prob_synth, _cfg(), checkpoint_dir=str(tmp_path),
+                     checkpoint_every=2)
     assert chunked.iterations == whole.iterations
     assert chunked.flag == whole.flag
     np.testing.assert_array_equal(chunked.history, whole.history)
     np.testing.assert_array_equal(chunked.cams, whole.cams)
-    from psba_tpu.utils import checkpoint as ckpt
-
     cams, _pts, meta = ckpt.load_latest(str(tmp_path))
     assert meta["point_order"] == "natural" and meta["phase"] == "lm"
     assert meta["itno"] == whole.iterations
@@ -120,29 +133,20 @@ def test_chunked_checkpoint_run_is_exact(prob_synth, tmp_path):
 
 
 def test_checkpoint_point_order_mismatch_raises(prob_synth, tmp_path):
-    from psba_tpu.utils import checkpoint as ckpt
-
     ckpt.save(str(tmp_path), prob_synth.cams, prob_synth.pts, 3,
               CC.ITER_CONTINUE, "lm", extra={"point_order": "tile-0000abcd"})
     with pytest.raises(ValueError, match="point_order|order"):
-        solve(prob_synth, _cfg(), dtype=torch.float32,
-              checkpoint_dir=str(tmp_path))
+        _solve(prob_synth, _cfg(), checkpoint_dir=str(tmp_path))
 
 
-@pytest.mark.parametrize("case", ["turn_to_tr", "polish", "start_tr",
-                                  "pairs", "s_precision_high", "xla"])
+@pytest.mark.parametrize("case", ["polish", "pairs", "s_precision_high",
+                                  "xla"])
 def test_next_slices_raise(prob_synth, case):
-    """The slice ends where the TR phase, the f64 polish and the other
-    encodings begin: each raises NotImplementedError instead of stopping
-    quietly."""
+    """The port ends where the f64 polish and the other encodings begin:
+    each raises NotImplementedError instead of stopping quietly."""
     kw, cfg = {}, _cfg()
-    if case == "turn_to_tr":
-        # every accepted step with |rho - 1| < 0.2 counts; one is enough
-        cfg = cfg._replace(lm_switch_count=1, damping="additive")
-    elif case == "polish":
+    if case == "polish":
         kw = dict(polish_iters=2)
-    elif case == "start_tr":
-        kw = dict(start="tr")
     elif case == "pairs":
         kw = dict(schur="pairs")
     elif case == "s_precision_high":
@@ -150,24 +154,34 @@ def test_next_slices_raise(prob_synth, case):
     else:
         cfg = cfg._replace(backend="xla")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(prob_synth, cfg, dtype=torch.float32, **kw)
+        _solve(prob_synth, cfg, **kw)
+
+
+def test_solve_without_device_needs_a_card(prob_synth, monkeypatch):
+    """With no device named, solve runs on CUDA; without a card it raises
+    and says how to ask for the CPU, rather than falling back quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        solve(_port(prob_synth), _cfg(), dtype=torch.float32)
 
 
 def test_import_and_solve_without_jax():
-    """Importing the port and running a small CPU solve never imports jax."""
+    """Importing the port and running a small CPU solve never imports jax
+    or any module of psba_tpu."""
     code = (
         "import sys, torch\n"
         "import psba_tpu_torch\n"
-        "from psba_tpu.io import synthetic_problem\n"
+        "from psba_tpu_torch.io import synthetic_problem\n"
         "p = synthetic_problem(n_cams=4, n_pts=40, seed=1)\n"
         "from psba_tpu_torch.solvers import SolverConfig\n"
-        "cfg = SolverConfig.for_dtype(torch.float32, lm_switch_count=99)\n"
-        "r = psba_tpu_torch.solve(p, cfg, dtype=torch.float32)\n"
+        "cfg = SolverConfig.for_dtype(torch.float32, max_iters=12)\n"
+        "r = psba_tpu_torch.solve(p, cfg, dtype=torch.float32, "
+        "device='cpu')\n"
         "assert r.final_l2 < r.initial_l2, r\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('jaxlib')]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'psba_tpu') or "
+        "m.startswith(('jax.', 'jaxlib', 'psba_tpu.'))]\n"
         "assert not bad, bad\n"
-        "print('ok', r.flag_name)\n"
+        "print('ok', r.flag_name, [ph for ph, _, _ in r.phases])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
