@@ -3,29 +3,40 @@
 
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile    # also torch.profiler tables of three
-                                       # LM and three TR iterations, under
+                                       # LM and three TR iterations on the
+                                       # dense and the pair path, under
                                        # chiprun_out/
+    python3 chip_smoke.py --cap        # also ms per LM iteration of the
+                                       # dense and the pair encoding at
+                                       # Dubrovnik-356's counts
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. environment: CUDA present, card name and power limit, kernels built
      from psba_tpu_torch/csrc (nvcc, all sources at once, seconds printed);
   2. every kernel against its plain PyTorch version on CUDA tensors at the
-     main path's shapes (138 cameras x 19,878 requested points, the counts
-     of BAL's Ladybug-138; n = 126 / 828 reduced systems; the observation
-     stream with the TR flags and with every flag; the J-gram at n = 1, 2,
+     main paths' shapes (the trial-step residual at final961_pairs below;
+     the others at 138 cameras x 19,878 requested points, the counts of
+     BAL's Ladybug-138: n = 126 / 828 reduced systems, the observation
+     stream with the TR flags and with every flag, the J-gram at n = 1, 2,
      3), with the tolerance stated, CUDA-event times (median after warm-up),
      each kernel's device time from the profiler, its bound (the larger of
      bytes over HBM bandwidth and flops over the float32 rate) and, where one
      PyTorch call computes the same function, that call's time;
-  3. the main paths, each with the launch counters reset just before and
-     read just after: psba_tpu_torch.solve in float32 with the LM->TR switch
-     off (the LM path, three kernels), then with the default SolverConfig
-     (LM -> TR -> ..., all five kernels; ms per LM and per TR iteration and
-     the GMW bootstrap's time printed);
+  3. the dense main paths, each with the launch counters reset just before
+     and read just after: psba_tpu_torch.solve in float32 with the LM->TR
+     switch off (the LM path, three kernels), then with the default
+     SolverConfig (LM -> TR -> ..., five kernels; ms per LM and per TR
+     iteration and the GMW bootstrap's time printed);
+  3p. the covisibility-pair main path at Final-961's counts
+     (final961_pairs: 961 cameras of the synthetic ring, 187,103 points,
+     about 9 observations each), which solve(schur="auto") must put on the
+     pair encoding by itself: LM only, then the default config, counters
+     reset and read around each;
   3g. TR from the start on the 6-camera synthetic problem with an unobserved
      camera appended (the GMW bootstrap), on CUDA and on the CPU;
   4. tests/data/mini_bal.txt on CUDA and on the CPU (plain versions), with
      the LM-only and the default config, held together;
+  4p. the same on the pair encoding, and pairs against dense on CUDA;
   5. a JSON line of the kernels, then, last, the device JSON line.
 It imports nothing of JAX.
 """
@@ -58,6 +69,17 @@ LINEARIZE_DENSE_FLOPS = CELL_LINEARIZE_FLOPS + 198
 GAIN_DENSE_FLOPS = 2 * CELL_RESIDUAL_FLOPS + 8
 # the stream with the TR flags: mask (20), U (84), ga (24), l2 (4)
 LINEARIZE_STREAM_FLOPS = CELL_LINEARIZE_FLOPS + 132
+# the trial-step residual and its masked square (4)
+RESIDUAL_L2_FLOPS = CELL_RESIDUAL_FLOPS + 4
+
+# The pair path's configuration, final961_pairs: BAL's Final-961 camera and
+# point counts (961 cameras, 187,103 points) on the synthetic ring, about 9
+# observations per point. C * P = 180M cells, above the dense cap, so
+# schur="auto" takes the pair encoding.
+FINAL961 = dict(n_cams=961, n_pts=187_103, mean_obs=9.0)
+# Dubrovnik-356's counts (80.7M cells, 5 observations per point): the --cap
+# measurement, which placed the dense cap (DENSE_MAX_ENTRIES) below it.
+DUBROVNIK356 = dict(n_cams=356, n_pts=226_730, mean_obs=5.0)
 
 
 def jgram_flops(n: int) -> int:
@@ -131,6 +153,90 @@ def per_phase_iterations(res) -> dict:
     return out
 
 
+def ring_problem(n_cams: int, n_pts: int, mean_obs: float):
+    """n_cams cameras of the synthetic_problem ring, written to a temporary
+    12-column camera file, with points from synthesize_points_for_cams
+    (look_sign +1, seed 0) and the covisibility pair list. Returns (problem,
+    seconds to build it)."""
+    import tempfile
+
+    from psba_tpu_torch.io import synthesize_points_for_cams, synthetic_problem
+    from psba_tpu_torch.io.sba_text import write_cams
+
+    t0 = time.perf_counter()
+    ring = synthetic_problem(n_cams=n_cams, n_pts=50, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cams.txt")
+        write_cams(path, ring.K, ring.q0, ring.cams)
+        prob = synthesize_points_for_cams(path, n_pts=n_pts,
+                                          mean_obs=mean_obs, look_sign=1.0,
+                                          seed=0)
+    prob = prob.with_pairs()
+    return prob, time.perf_counter() - t0
+
+
+def check_residual_l2(prob, dev):
+    """Kernel 6 against its plain version on CUDA tensors at `prob`'s shape
+    (cameras perturbed from a seed), without and with a mask that drops the
+    last 1,000 observations. Returns (its row of the kernels line, the
+    unmasked arguments)."""
+    import numpy as np
+    import torch
+
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    f32 = torch.float32
+    C, P, O = prob.n_cams, prob.n_pts, prob.n_obs
+    rng = np.random.default_rng(2)
+    cams = prob.cams + np.concatenate(
+        [1e-3 * rng.standard_normal((C, 3)),
+         1e-2 * rng.standard_normal((C, 3))], axis=1)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
+    i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev)
+    args = (f(prob.K), f(prob.q0), f(cams), f(prob.pts), f(prob.obs),
+            i(prob.cam_idx), i(prob.pt_idx))
+    valid = (torch.arange(O, device=dev) < O - 1000).to(f32)
+    # ex = obs - proj: the kernel (with fused multiply-adds) and the plain
+    # version each round the camera-frame point and the projection (up to
+    # ~6e2 px) in float32, and points close to a camera (depth down to 0.3
+    # against coordinates up to ~15) magnify that rounding to ~1e-3 px; so
+    # ex is held to 1e-4 of max |ex| against the plain version and against
+    # the float64 evaluation of the same inputs, as linearize_stream's ex.
+    # l2, a sum of 1.7M positive terms in another order: 1e-5.
+    ex64, _ = ls.residual_l2_plain(*(a.double() if a.is_floating_point()
+                                     else a for a in args))
+    errs, l2s = [], []
+    for label, vm in (("no mask", None), ("mask", valid)):
+        ex_k, l2_k = ls.residual_l2(*args, vm)
+        ex_p, l2_p = ls.residual_l2_plain(*args, vm)
+        torch.cuda.synchronize()
+        need(ex_k.shape == (O, 2), f"residual_l2 ex shape {ex_k.shape}")
+        errs.append(compare(f"residual_l2[{label}] ex", ex_k, ex_p, 1e-4))
+        compare(f"residual_l2[{label}] ex vs f64", ex_k, ex64, 1e-4)
+        compare(f"plain[{label}] ex vs f64", ex_p, ex64, 1e-4)
+        errs.append(compare(f"residual_l2[{label}] l2", l2_k, l2_p, 1e-5))
+        l2s.append(float(l2_k))
+    tail = float((ex_k[-1000:] ** 2).sum())
+    print(f"  residual_l2 l2 {l2s[0]:.6e}, masked {l2s[1]:.6e}, the dropped "
+          f"tail {tail:.6e}", flush=True)
+    need(abs(l2s[0] - l2s[1] - tail) <= 1e-5 * l2s[0],
+         "residual_l2: the mask does not drop the last observations")
+    row = dict(
+        max_abs_err=max(e for e, _ in errs),
+        max_rel_err=max(r for _, r in errs),
+        ms=cuda_ms(lambda: ls.residual_l2(*args)),
+        plain_ms=cuda_ms(lambda: ls.residual_l2_plain(*args), warmup=1,
+                         runs=5),
+        library_ms=None,
+        # reads K | q0 | cams, the points, obs and the two int32 index
+        # streams once; writes ex
+        **bound(4 * 15 * C + 12 * P + O * (8 + 8 + 8),
+                RESIDUAL_L2_FLOPS * O),
+    )
+    return row, args
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -147,6 +253,7 @@ def main(argv) -> int:
     from psba_tpu_torch.ops import residual_dense as rd
     from psba_tpu_torch.solvers import ProblemArrays, SolverConfig
     from psba_tpu_torch.solvers import tr as trmod
+    from psba_tpu_torch.solvers.types import DENSE_MAX_ENTRIES
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -159,12 +266,22 @@ def main(argv) -> int:
     secs = _build.build()
     print(f"[1] kernel build: {secs:.1f} s", flush=True)
 
-    # ---- phase 2: kernels against plain versions at the main path's shapes
+    # ---- phase 2: kernels against plain versions at the main paths' shapes
+    f32 = torch.float32
+    rows = {}
+    big, big_s = ring_problem(**FINAL961)
+    cnt = np.bincount(big.pt_idx)
+    print(f"[2] final961_pairs: C={big.n_cams} P={big.n_pts} O={big.n_obs} "
+          f"(mean {cnt.mean():.2f} observations per point), "
+          f"{len(big.pair_o1)} covisibility pairs, C*P = "
+          f"{big.n_cams * big.n_pts} cells (built in {big_s:.1f} s)",
+          flush=True)
+    rows["residual_l2"], rargs = check_residual_l2(big, dev)
+
     t0 = time.perf_counter()
     prob = synthetic_problem(n_cams=138, n_pts=19878, seed=0)
     print(f"[2] problem: C={prob.n_cams} P={prob.n_pts} O={prob.n_obs} "
           f"(built in {time.perf_counter() - t0:.1f} s)", flush=True)
-    f32 = torch.float32
     pa = ProblemArrays.from_problem(prob, dtype=f32, device=dev)
     rng = np.random.default_rng(0)
     cams = torch.as_tensor(prob.cams + np.concatenate(
@@ -176,7 +293,6 @@ def main(argv) -> int:
     C, P, O = prob.n_cams, prob.n_pts, prob.n_obs
     Pp = ld.padded_points(P)
     cam_bytes = 4 * 15 * C          # K | q0 | cams
-    rows = {}
 
     args = (pa.K, pa.q0, cams, pts, *tables)
     out_k = ld.linearize_dense(*args, want_u=True)
@@ -363,6 +479,7 @@ def main(argv) -> int:
             ls.linearize_stream(*sargs, None, C, P, tables=pa.stream,
                                 **tr_flags)
             rd.jgram_dense(*j2)
+            ls.residual_l2(*rargs)
         torch.cuda.synchronize()
     for e in prof.key_averages():
         for k in rows:
@@ -376,15 +493,16 @@ def main(argv) -> int:
               f"{v['kernel_ms']:.4f} ms), plain {v['plain_ms']:.4f} ms, "
               f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), library "
               f"{lib}", flush=True)
-    del out_k, pa, gram, j2
+    del out_k, pa, gram, j2, rargs
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main paths
     kern = {"linearize_dense": ld.linearize_dense, "gain_dense": rd.gain_dense,
             "spd_solve": chol.spd_solve,
             "linearize_stream": ls.linearize_stream,
-            "jgram_dense": rd.jgram_dense}
+            "jgram_dense": rd.jgram_dense, "residual_l2": ls.residual_l2}
     lm_path = ("linearize_dense", "spd_solve", "gain_dense")
+    dense_path = lm_path + ("linearize_stream", "jgram_dense")
 
     def reset():
         for fn in kern.values():
@@ -464,11 +582,58 @@ def main(argv) -> int:
     need(res.cams.shape == prob.cams.shape and res.pts.shape == prob.pts.shape
          and np.isfinite(res.cams).all() and np.isfinite(res.pts).all(),
          "output parameters malformed")
-    for k, v in launches.items():
-        need(v > 0, f"kernel {k} was not launched on the default path")
+    for k in dense_path:
+        need(launches[k] > 0, f"kernel {k} was not launched on the default "
+             "path")
 
+    # ---- phase 3p: the covisibility-pair path at final961_pairs
+    need(big.n_cams * big.n_pts > DENSE_MAX_ENTRIES,
+         "final961_pairs is not above the dense cap")
+    psba_tpu_torch.solve(big, cfg_lm._replace(max_iters=2), dtype=f32,
+                         device=dev)   # warm-up: batched GEMM, cholesky_ex
+    pair_runs = {}
+    for label, c in (("LM path", cfg_lm), ("default", cfg)):
+        gmw_log.clear()
+        reset()
+        r = psba_tpu_torch.solve(big, c, dtype=f32, device=dev)
+        got = read()
+        oversized = linalg.spd_solve.oversized_launches
+        per_p = per_phase_iterations(r)
+        ms_p = {ph: 1e3 * r.phase_seconds[ph] / per_p[ph] for ph in per_p}
+        pair_runs[label] = dict(res=r, launches=got, per=per_p, ms=ms_p,
+                                oversized=oversized,
+                                gmw=[(n_, t) for n_, t, _, _ in gmw_log])
+        print(f"[3p] final961_pairs, {label}, schur='auto': {r}\n"
+              f"[3p]   phases {r.phases}; iterations per phase {per_p}\n"
+              f"[3p]   ms per LM iteration "
+              f"{ms_p.get('lm', float('nan')):.3f}, per TR iteration "
+              f"{ms_p.get('tr', float('nan')):.3f}\n"
+              f"[3p]   launches {got}, oversized spd_solve (cholesky_ex, "
+              f"n = {6 * big.n_cams}) {oversized}\n"
+              f"[3p]   GMW bootstraps (n, ms, lambda) "
+              f"{[(n_, round(t, 3), lam) for n_, t, lam, _ in gmw_log]}\n"
+              f"[3p]   initial_error {r.initial_error:.6e} final_error "
+              f"{r.final_error:.6e} flag {r.flag_name}", flush=True)
+        need(np.isfinite(r.final_l2) and r.final_error < r.initial_error,
+             f"pair path, {label}: error did not decrease")
+        need(r.flag_name in ok_flags,
+             f"pair path, {label}: abnormal stop {r.flag_name}")
+        need(r.cams.shape == big.cams.shape and np.isfinite(r.cams).all()
+             and np.isfinite(r.pts).all(),
+             f"pair path, {label}: output parameters malformed")
+        for k in ("linearize_stream", "residual_l2"):
+            need(got[k] > 0, f"pair path, {label}: kernel {k} not launched")
+        for k in ("linearize_dense", "gain_dense", "jgram_dense"):
+            need(got[k] == 0, f"pair path, {label}: dense kernel {k} "
+                 "launched, so schur='auto' did not take the pairs")
+        need(oversized > 0, f"pair path, {label}: no oversized spd_solve")
+    need("tr" in pair_runs["default"]["per"],
+         "pair path, default: never entered TR")
     if "--profile" in argv:
-        profile(prob, cfg, dev)
+        profile(prob, cfg, dev, "dense")
+        profile(big, cfg, dev, "pairs")
+    del big
+    torch.cuda.empty_cache()
 
     # ---- phase 3g: TR from the start through the GMW bootstrap
     small = synthetic_problem(n_cams=6, n_pts=150, seed=3)
@@ -501,32 +666,52 @@ def main(argv) -> int:
     # so the two devices' TR trajectories part there; 15 iterations (LM to
     # 14, one TR step) are held to flag, phases and final_l2 1e-3, the full
     # run to final_l2 1e-3 and a normal stop on both.
+    # Phase 4p runs the same checks on the pair encoding, then pairs against
+    # dense on CUDA: LM 20, final_l2 1e-3 and equal phases.
     mini = bal_to_problem(os.path.join(REPO, "tests", "data", "mini_bal.txt"))
     checks = ((cfg_lm._replace(max_iters=20), "LM 20", True, 0),
               (cfg_lm, "LM full", False, 3),
               (cfg._replace(max_iters=15), "default 15", True, 0),
               (cfg, "default full", False, None))
-    for c, label, strict, it_tol in checks:
-        r_gpu = psba_tpu_torch.solve(mini, c, dtype=f32, device=dev)
-        r_cpu = psba_tpu_torch.solve(mini, c, dtype=f32, device="cpu")
-        rel = abs(r_gpu.final_l2 - r_cpu.final_l2) / r_cpu.final_l2
-        print(f"[4] mini_bal, {label}\n[4]   cuda: {r_gpu} {r_gpu.phases}\n"
-              f"[4]   cpu:  {r_cpu} {r_cpu.phases}\n"
-              f"[4]   final_l2 rel diff {rel:.3e} (tolerance 1e-3)",
-              flush=True)
-        need(rel <= 1e-3, f"{label}: CUDA and CPU final_l2 disagree")
-        if strict:
-            need(r_gpu.flag == r_cpu.flag and r_gpu.phases == r_cpu.phases,
-                 f"{label}: CUDA and CPU runs stop differently")
-        else:
-            need(r_gpu.flag_name in ok_flags and r_cpu.flag_name in ok_flags,
-                 f"{label}: abnormal stop")
-        if it_tol is not None:
-            need(abs(r_gpu.iterations - r_cpu.iterations) <= it_tol,
-                 f"{label}: CUDA and CPU iteration counts differ")
-        if "default" in label:
-            need("tr" in [ph for ph, _, _ in r_gpu.phases],
-                 f"{label}: no TR phase")
+    for tag, schur in (("4", "dense"), ("4p", "pairs")):
+        for c, label, strict, it_tol in checks:
+            r_gpu = psba_tpu_torch.solve(mini, c, dtype=f32, device=dev,
+                                         schur=schur)
+            r_cpu = psba_tpu_torch.solve(mini, c, dtype=f32, device="cpu",
+                                         schur=schur)
+            rel = abs(r_gpu.final_l2 - r_cpu.final_l2) / r_cpu.final_l2
+            print(f"[{tag}] mini_bal, schur={schur}, {label}\n"
+                  f"[{tag}]   cuda: {r_gpu} {r_gpu.phases}\n"
+                  f"[{tag}]   cpu:  {r_cpu} {r_cpu.phases}\n"
+                  f"[{tag}]   final_l2 rel diff {rel:.3e} (tolerance 1e-3)",
+                  flush=True)
+            label = f"{schur}, {label}"
+            need(rel <= 1e-3, f"{label}: CUDA and CPU final_l2 disagree")
+            if strict:
+                need(r_gpu.flag == r_cpu.flag
+                     and r_gpu.phases == r_cpu.phases,
+                     f"{label}: CUDA and CPU runs stop differently")
+            else:
+                need(r_gpu.flag_name in ok_flags
+                     and r_cpu.flag_name in ok_flags,
+                     f"{label}: abnormal stop")
+            if it_tol is not None:
+                need(abs(r_gpu.iterations - r_cpu.iterations) <= it_tol,
+                     f"{label}: CUDA and CPU iteration counts differ")
+            if "default" in label:
+                need("tr" in [ph for ph, _, _ in r_gpu.phases],
+                     f"{label}: no TR phase")
+    c20 = cfg_lm._replace(max_iters=20)
+    r_p = psba_tpu_torch.solve(mini, c20, dtype=f32, device=dev,
+                               schur="pairs")
+    r_d = psba_tpu_torch.solve(mini, c20, dtype=f32, device=dev,
+                               schur="dense")
+    rel = abs(r_p.final_l2 - r_d.final_l2) / r_d.final_l2
+    print(f"[4p] mini_bal, LM 20 on CUDA, pairs: {r_p} {r_p.phases}\n"
+          f"[4p]   dense: {r_d} {r_d.phases}\n"
+          f"[4p]   final_l2 rel diff {rel:.3e} (tolerance 1e-3)", flush=True)
+    need(rel <= 1e-3 and r_p.phases == r_d.phases,
+         "mini_bal LM 20: pairs and dense disagree on CUDA")
 
     # ---- phase 5: output
     src = {
@@ -540,14 +725,34 @@ def main(argv) -> int:
                         "psba_tpu/ops/residual_dense.py:276"),
         "linearize_stream": ("psba_tpu_torch/csrc/linearize_stream.cu",
                              "psba_tpu/ops/linearize_pallas.py:273"),
+        "residual_l2": ("psba_tpu_torch/csrc/residual_l2.cu",
+                        "psba_tpu/ops/linearize_pallas.py:347"),
     }
+    pd, pl = pair_runs["default"], pair_runs["LM path"]
+    # launches: the two default solves (dense 3b and pairs 3p) together,
+    # then each main path on its own
     kernels = [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
-             launches=launches[k], launches_lm_path=launches_lm[k], **rows[k])
+             launches=launches[k] + pd["launches"][k],
+             launches_dense_default=launches[k],
+             launches_dense_lm_path=launches_lm[k],
+             launches_pairs_default=pd["launches"][k],
+             launches_pairs_lm_path=pl["launches"][k], **rows[k])
         for k in src
     ]
+    if "--cap" in argv:
+        cap_measurement(cfg_lm, dev)
     print(f"[5] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi_line(), flush=True)
+    pairs_line = {
+        label: {"lm_iter_ms": v["ms"].get("lm"),
+                "tr_iter_ms": v["ms"].get("tr"), "iterations": v["per"],
+                "phases": v["res"].phases, "gmw_ms": v["gmw"],
+                "oversized_spd_solve": v["oversized"],
+                "initial_error": v["res"].initial_error,
+                "final_error": v["res"].final_error}
+        for label, v in pair_runs.items()
+    }
     print(json.dumps({
         "kernels": kernels,
         "lm_iter_ms": ms_it.get("lm"), "tr_iter_ms": ms_it.get("tr"),
@@ -556,6 +761,7 @@ def main(argv) -> int:
         "lm_path": {"lm_iter_ms": ms_lm_only,
                     "iterations": res_lm.iterations,
                     "final_error": res_lm.final_error},
+        "final961_pairs": pairs_line,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -563,11 +769,50 @@ def main(argv) -> int:
     return 0
 
 
-def profile(prob, cfg, dev) -> None:
+def cap_measurement(cfg_lm, dev) -> None:
+    """ms per LM iteration of schur="dense" and schur="pairs" at
+    Dubrovnik-356's counts (80.7M cells): five LM iterations from the same
+    start after a one-iteration warm-up, with the tries and the peak device
+    memory of each run. Its numbers are in the comment of
+    solvers.types.DENSE_MAX_ENTRIES."""
+    import torch
+
+    import psba_tpu_torch
+    from psba_tpu_torch.ops import linearize_stream as ls
+    from psba_tpu_torch.ops import residual_dense as rd
+
+    prob, secs = ring_problem(**DUBROVNIK356)
+    print(f"[cap] Dubrovnik-356 counts: C={prob.n_cams} P={prob.n_pts} "
+          f"O={prob.n_obs}, {len(prob.pair_o1)} pairs, C*P = "
+          f"{prob.n_cams * prob.n_pts} cells (built in {secs:.1f} s)",
+          flush=True)
+    f32 = torch.float32
+    c5 = cfg_lm._replace(max_iters=5)
+    for schur in ("pairs", "dense"):
+        psba_tpu_torch.solve(prob, c5._replace(max_iters=1), dtype=f32,
+                             device=dev, schur=schur)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rd.gain_dense.launches = ls.residual_l2.launches = 0
+        r = psba_tpu_torch.solve(prob, c5, dtype=f32, device=dev,
+                                 schur=schur)
+        tries = rd.gain_dense.launches + ls.residual_l2.launches
+        ms = 1e3 * r.phase_seconds["lm"] / r.iterations
+        print(f"[cap] schur={schur}: {r}; {r.iterations} LM iterations, "
+              f"{tries} tries; {ms:.3f} ms per LM iteration, "
+              f"{1e3 * r.phase_seconds['lm'] / tries:.3f} ms per try; peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        torch.cuda.empty_cache()
+
+
+def profile(prob, cfg, dev, schur) -> None:
     """torch.profiler tables of three LM iterations (lm_run alone) and three
     TR iterations (tr_run alone, entered with lambda = 1 so the table shows
-    a steady TR iteration rather than the GMW bootstrap), each after a
-    warm-up: kernel time by name and the device's busy share."""
+    a steady TR iteration rather than the GMW bootstrap) on the `schur`
+    encoding, each after a warm-up: kernel time by name (written to
+    chiprun_out/profile_<schur>_<lm|tr>3.txt) and the device's busy share
+    (printed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -581,7 +826,7 @@ def profile(prob, cfg, dev) -> None:
 
     os.makedirs(OUT_DIR, exist_ok=True)
     f32 = torch.float32
-    pa = ProblemArrays.from_problem(prob, dtype=f32, device=dev)
+    pa = ProblemArrays.from_problem(prob, dtype=f32, device=dev, schur=schur)
     cams = torch.as_tensor(prob.cams, dtype=f32, device=dev)
     pts = torch.as_tensor(prob.pts, dtype=f32, device=dev)
     c3 = resolve_damping(cfg._replace(max_iters=3, lm_switch_count=10_000),
@@ -617,13 +862,15 @@ def profile(prob, cfg, dev) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.is_user_annotation
         ) / 1e3
-        summary = (f"OptState.init + {name}_run, {out.itno} iterations: wall "
-                   f"{wall_ms:.3f} ms (profiler off), device busy "
-                   f"{busy:.3f} ms (profiler on), idle share "
-                   f"{1 - busy / wall_ms:.3f}")
-        with open(os.path.join(OUT_DIR, f"profile_{name}3.txt"), "w") as f:
+        summary = (f"[profile] {schur}: OptState.init + {name}_run, "
+                   f"{out.itno} iterations: wall {wall_ms:.3f} ms (profiler "
+                   f"off), device busy {busy:.3f} ms (profiler on), idle "
+                   f"share {1 - busy / wall_ms:.3f}")
+        path = os.path.join(OUT_DIR, f"profile_{schur}_{name}3.txt")
+        with open(path, "w") as f:
             f.write(summary + "\n" + table)
-        print(summary + "\n" + table, flush=True)
+        print(f"{summary}; table in {os.path.relpath(path, REPO)}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -38,17 +38,6 @@ FLAG_NAMES = {
     ITER_PASS: "PASS",
 }
 
-# Dense-Schur dispatch threshold: the blk_idx-gather formulation (see
-# psba_tpu.core.schur.schur_S_dense) materializes two [6C, 3P] stacked
-# block tensors (144 bytes per (cam, point) cell in f32); above this many
-# C*P cells the covisibility pair list path is used instead. Measured
-# (SCHUR_COMPARE.json, TPU v5e): dense beats the pair-list encoding by
-# 10-15x on every BAL shape up to Rome-93 (C*P = 5.7M, 15.3 vs 112
-# ms/LM-iter), so the threshold is set by MEMORY, not speed: 32M cells
-# keeps ZW+ZY under ~9.2 GB of the chip's 16 GB HBM. Pairs remains the
-# correct encoding only beyond that.
-DENSE_SCHUR_MAX_ENTRIES = 32 * 1024 * 1024
-
 # Parameter-block dimensions (PSBA/CL_files/PSBA.cl:5-7; fixed by the camera
 # model: 3 local-rotation + 3 translation per camera, 3 per point, 2 per
 # observation).

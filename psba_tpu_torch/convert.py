@@ -17,8 +17,9 @@ from psba_tpu_torch import constants as CC
 from psba_tpu_torch.ops.linearize_stream import build_stream_tables
 from psba_tpu_torch.solvers.types import OptState, ProblemArrays, torch_dtype
 
-_FIELDS = ("K", "q0", "obs", "cam_idx", "pt_idx", "obs_du", "obs_dv",
-           "valid_d")
+_FIELDS = ("K", "q0", "obs", "cam_idx", "pt_idx")
+_DENSE = ("obs_du", "obs_dv", "valid_d")
+_PAIRS = ("pair_o1", "pair_o2", "pair_bucket")
 
 
 def _getter(obj):
@@ -26,27 +27,37 @@ def _getter(obj):
             else lambda k: getattr(obj, k, None))
 
 
+def _present(a) -> bool:
+    return a is not None and np.asarray(a).dtype != object
+
+
 def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
     """Port tensors from the reference's ProblemArrays fields and camera /
     point arrays given as numpy (a mapping or an object with the fields
-    K, q0, obs, cam_idx, pt_idx, obs_du, obs_dv, valid_d; the reference
-    builds the three dense tables only for the dense encoding).
+    K, q0, obs, cam_idx, pt_idx and one encoding: the dense tables obs_du,
+    obs_dv, valid_d, or the pair list pair_o1, pair_o2, pair_bucket; the
+    reference builds only the one it solves with).
 
     Returns (ProblemArrays, cams [C, 6], pts [P, 3]) on `device`, floating
     fields in `dtype` (default: the dtype of cams_np)."""
     get = _getter(pa_np)
     dt = torch_dtype(np.asarray(cams_np).dtype if dtype is None else dtype)
+    enc = [k for k in _DENSE + _PAIRS if _present(get(k))]
+    if sorted(enc) not in (sorted(_DENSE), sorted(_PAIRS)):
+        raise ValueError(f"from_reference: need the three dense tables or "
+                         f"the three pair fields, got {enc}")
     out = {}
-    for k in _FIELDS:
+    for k in _FIELDS + tuple(enc):
+        if not _present(get(k)):
+            raise ValueError(f"from_reference: field {k} missing")
         a = np.asarray(get(k))
-        if a is None or a.dtype == object:
-            raise ValueError(f"from_reference: field {k} missing (dense "
-                             "encoding needed)")
         kind = torch.int64 if np.issubdtype(a.dtype, np.integer) else dt
         out[k] = torch.tensor(a, dtype=kind, device=device)
-    out["stream"] = build_stream_tables(
-        np.asarray(get("cam_idx")), np.asarray(get("pt_idx")),
-        out["K"].shape[0], device=device)
+    cam_idx, pt_idx = np.asarray(get("cam_idx")), np.asarray(get("pt_idx"))
+    out["cam_idx32"] = torch.tensor(cam_idx, dtype=torch.int32, device=device)
+    out["pt_idx32"] = torch.tensor(pt_idx, dtype=torch.int32, device=device)
+    out["stream"] = build_stream_tables(cam_idx, pt_idx, out["K"].shape[0],
+                                        device=device)
     as_t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=device)
     return ProblemArrays(**out), as_t(cams_np), as_t(pts_np)
 
@@ -54,7 +65,8 @@ def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
 def state_from_reference(st_np, device="cpu", dtype=None) -> OptState:
     """Port OptState from the reference's OptState fields as numpy (a
     mapping or an object with cams, pts, ex, ex_l2, itno, flag and the
-    optional history and aux). The phase-scalar vector `aux` (LM or TR)
+    optional history and aux, absent as None or as a numpy object array
+    of None). The phase-scalar vector `aux` (LM or TR)
     and the history rows carry over, so a phase can start in both packages
     from one state."""
     get = _getter(st_np)
@@ -65,9 +77,10 @@ def state_from_reference(st_np, device="cpu", dtype=None) -> OptState:
     return OptState(
         cams=as_t(get("cams")), pts=as_t(get("pts")), ex=as_t(get("ex")),
         ex_l2=as_t(get("ex_l2")), itno=int(np.asarray(get("itno"))),
-        flag=CC.ITER_CONTINUE if flag is None else int(np.asarray(flag)),
-        history=None if hist is None else np.array(hist),
-        aux=None if aux is None else as_t(aux),
+        flag=(int(np.asarray(flag)) if _present(flag)
+              else CC.ITER_CONTINUE),
+        history=np.array(hist) if _present(hist) else None,
+        aux=as_t(aux) if _present(aux) else None,
     )
 
 

@@ -1,8 +1,9 @@
-"""Schur-complement reduction of the camera system, dense3 family
-(PyTorch counterpart of the planar functions of psba_tpu.core.schur).
+"""Schur-complement reduction of the camera system (PyTorch counterpart
+of psba_tpu.core.schur): the dense3 family and the covisibility-pair
+family.
 
-Everything per point is planar: V blocks are [3, 3, Pp] and the stacked
-off-diagonal factor comes as three [6C, Pp] planes ZWk[6c+i, p] =
+dense3. Everything per point is planar: V blocks are [3, 3, Pp] and the
+stacked off-diagonal factor comes as three [6C, Pp] planes ZWk[6c+i, p] =
 W_(c,p)[i, k] (ops.linearize_dense). With that layout
 
   ZY_j   = sum_m ZW_m * Vinv[m, j]                 (broadcast FMAs)
@@ -10,15 +11,28 @@ W_(c,p)[i, k] (ops.linearize_dense). With that layout
   ea     = ga - sum_j ZY_j @ gb_j                  [C, 6]
   eb_j   = gb_j - ZW_j^T dpa;  dpb_k = sum_j Vinv[j, k] eb_j
 
-The large products are plain matrix products (cuBLAS on the card), pinned
-to true float32: TF32 would keep about three decimal digits of S, which
-caps how far the float32 path converges (the reference pins
-Precision.HIGHEST for the same reason).
+pairs. Per-observation blocks W_o [O, 6, 3] (ops.linearize_stream) and the
+static covisibility pair list of problem.build_covis_pairs:
+
+  Y_o    = W_o Vinv_{i(o)}                                     [O, 6, 3]
+  S_kl   = delta_kl U_k - sum_{pairs (o1, o2) in bucket kC+l} Y_o1 W_o2^T
+  ea_j   = ga_j - sum_{o: cam(o)=j} Y_o gb_{i(o)}              [C, 6]
+  eb_i   = gb_i - sum_{o: pt(o)=i} W_o^T dpa_{j(o)};  dpb_i = Vinv_i eb_i
+
+The pair products are one batched (6x3)(3x6) product over the pairs and
+one bucket sum (ops.reduce.indexed_sum, `index_add_`).
+
+The products are plain matrix products (cuBLAS on the card), pinned to
+true float32: TF32 would keep about three decimal digits of S, which caps
+how far the float32 path converges (the reference pins Precision.HIGHEST
+for the same reason).
 """
 
 from __future__ import annotations
 
 import torch
+
+from psba_tpu_torch.ops.reduce import indexed_sum
 
 
 def _pin_fp32_matmul() -> None:
@@ -205,3 +219,50 @@ def back_substitute_dense3(gbp: torch.Tensor, ZW3, Vinv: torch.Tensor,
         ],
         dim=0,
     )
+
+
+def inv3x3(V: torch.Tensor):
+    """inv3x3_planar3 on [P, 3, 3] blocks: the same cofactor inverse,
+    power-of-two block scale and pivoted fallback, read from the upper
+    triangle (V symmetric). Returns (Vinv [P, 3, 3], ok)."""
+    Vinv, ok = inv3x3_planar3(V.permute(1, 2, 0))
+    return Vinv.permute(2, 0, 1).contiguous(), ok
+
+
+def y_blocks(W: torch.Tensor, Vinv: torch.Tensor,
+             pt_idx: torch.Tensor) -> torch.Tensor:
+    """Y_o = W_o Vinv_{i(o)}  [O, 6, 3]."""
+    _pin_fp32_matmul()
+    return torch.matmul(W, Vinv[pt_idx])
+
+
+def schur_S(U: torch.Tensor, Y: torch.Tensor, W: torch.Tensor, pair_o1,
+            pair_o2, pair_bucket, n_cams: int) -> torch.Tensor:
+    """S [6C, 6C] from the pair list; U [C, 6, 6] must already be damped.
+    Pair entries with bucket C*C (padding) add nothing."""
+    _pin_fp32_matmul()
+    C = n_cams
+    contrib = torch.matmul(Y[pair_o1], W[pair_o2].transpose(1, 2))  # [N,6,6]
+    S = -indexed_sum(contrib.reshape(-1, 36), pair_bucket,
+                     C * C).reshape(C, C, 6, 6)
+    ar = torch.arange(C, device=U.device)
+    S[ar, ar] += U
+    return S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
+
+
+def reduced_rhs(ga: torch.Tensor, gb: torch.Tensor, Y: torch.Tensor,
+                cam_idx, pt_idx, n_cams: int) -> torch.Tensor:
+    """ea_j = ga_j - sum_{o: cam(o)=j} Y_o gb_{i(o)}  [C, 6]."""
+    _pin_fp32_matmul()
+    contrib = torch.matmul(Y, gb[pt_idx][..., None])[..., 0]      # [O, 6]
+    return ga - indexed_sum(contrib, cam_idx, n_cams)
+
+
+def back_substitute(gb: torch.Tensor, W: torch.Tensor, Vinv: torch.Tensor,
+                    dpa: torch.Tensor, cam_idx, pt_idx, n_pts: int):
+    """eb_i = gb_i - sum_{o: pt(o)=i} W_o^T dpa_{j(o)};  dpb_i = Vinv_i eb_i.
+    Returns (eb [P, 3], dpb [P, 3])."""
+    _pin_fp32_matmul()
+    wt_dpa = torch.matmul(W.transpose(1, 2), dpa[cam_idx][..., None])[..., 0]
+    eb = gb - indexed_sum(wt_dpa, pt_idx, n_pts)
+    return eb, torch.matmul(Vinv, eb[..., None])[..., 0]

@@ -164,16 +164,14 @@ def synthesize_points_for_cams(
         pc = np.stack([xc, yc, zc], axis=1)
         # world point: X = R^T (pc - t)
         X = np.einsum("cji,cj->ci", Rm[j], pc - t[j])
-        # visibility in all cameras
-        pca = np.einsum("cij,pj->pci", Rm, X) + t[None]  # [batch, C, 3]
-        z = pca[..., 2]
-        front = (look_sign * z) > 0.05 * depth_scale
-        uv = np.stack(
-            [fu[None] * pca[..., 0] / z, fu[None] * K[None, :, 3] * pca[..., 1] / z],
-            axis=-1,
-        )
-        inwin = np.all(np.abs(uv) < half_w, axis=-1)
-        vis = front & inwin
+        # visibility in all cameras, a chunk of points at a time so the
+        # [chunk, C, 3] temporaries stay small (each element is computed
+        # as in one pass over the batch)
+        vis = np.concatenate([
+            _visible(X[s:s + _VIS_CHUNK], Rm, t, fu, K[:, 3], look_sign,
+                     depth_scale, half_w)
+            for s in range(0, batch, _VIS_CHUNK)
+        ])
         nview = vis.sum(axis=1)
         keep = nview >= 2
         pts_list.append(X[keep])
@@ -224,6 +222,32 @@ def synthesize_points_for_cams(
     )
     prob.validate()
     return prob
+
+
+_VIS_CHUNK = 8192
+
+
+def _visible(X, Rm, t, fu, ar, look_sign, depth_scale, half_w):
+    """[n, C] visibility of points X [n, 3]: in front of the camera and
+    inside the image window. Camera-frame coordinates R X + t one component
+    at a time, [n, C] each, summed in the order of
+    einsum("cij,pj->pci", R, X); float64 torch ops on the CPU, which use
+    every core and round each operation as numpy does."""
+    import torch
+
+    X, Rm, t, fu, ar = (torch.from_numpy(np.ascontiguousarray(a))
+                        for a in (X, Rm, t, fu, ar))
+
+    def cam_frame(i):
+        return (X[:, None, 0] * Rm[None, :, i, 0]
+                + X[:, None, 1] * Rm[None, :, i, 1]
+                + X[:, None, 2] * Rm[None, :, i, 2]) + t[None, :, i]
+
+    z = cam_frame(2)
+    vis = (look_sign * z) > 0.05 * depth_scale
+    vis &= torch.abs(fu[None] * cam_frame(0) / z) < half_w
+    vis &= torch.abs(fu[None] * ar[None] * cam_frame(1) / z) < half_w
+    return vis.numpy()
 
 
 def _quat_to_mat_batch(q):

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "psba_tpu_torch"
 SOURCES = ("linearize_dense", "cholesky", "gain_dense", "linearize_stream",
-           "jgram_dense")
+           "jgram_dense", "residual_l2")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -1,7 +1,8 @@
-"""Observation-stream linearization: residual, Jacobians, Hessian packs.
+"""Observation-stream linearization and trial-step residual.
 
-Port of psba_tpu.ops.linearize_pallas.linearize_pallas. One pass over the
-observations gives, per observation o:
+Ports of psba_tpu.ops.linearize_pallas.linearize_pallas and
+residual_l2_pallas. One pass of `linearize_stream` over the observations
+gives, per observation o:
 
   ex [O, 2]      residual obs - proj, unmasked
   A  [O, 2, 6]   camera Jacobian of the prediction  (want_jac)
@@ -18,6 +19,11 @@ coefficient-free (callers scale by the LM / TR convention).
 (float32) and runs `linearize_stream_plain` on CPU tensors. The kernel walks
 the observations in camera order; `StreamTables` holds that order and the
 per-block runs, built once per problem (ProblemArrays.stream).
+
+`residual_l2` is the trial step of the pair-encoding LM / TR loops: ex [O, 2]
+(unmasked) and l2 = sum valid * |ex|^2 at new parameters, launching
+csrc/residual_l2.cu on CUDA tensors (float32, int32 indices) and running
+`residual_l2_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +35,12 @@ import numpy as np
 import torch
 
 from psba_tpu_torch.ops import _build
-from psba_tpu_torch.ops.linearize_dense import _SYM6, _cell_model, camera_rows
+from psba_tpu_torch.ops.linearize_dense import (
+    _SYM6,
+    _cell_model,
+    camera_rows,
+    cell_residual,
+)
 
 # observations per block of the kernel (one camera per block), and the
 # per-block pack: 21 upper-triangle U entries, 6 ga entries, l2
@@ -202,3 +213,77 @@ def linearize_stream(K, q0, cams, pts, obs, cam_idx, pt_idx, valid, n_cams,
 
 
 linearize_stream.launches = 0
+
+
+def residual_l2_plain(K, q0, cams, pts, obs, cam_idx, pt_idx, valid=None,
+                      clamp=False):
+    """Plain PyTorch version (any dtype, any device): (ex [O, 2] unmasked,
+    l2 = sum valid * |ex|^2 as a 0-d tensor)."""
+    rows = camera_rows(K, q0, cams)[cam_idx.long()]            # [O, 15]
+    X = pts[pt_idx.long()]
+    one = torch.ones_like(obs[:, :1])
+    exu, exv = cell_residual(rows, X[:, 0:1], X[:, 1:2], X[:, 2:3],
+                             obs[:, 0:1], obs[:, 1:2], one, clamp)
+    e2 = (exu * exu + exv * exv)[:, 0]
+    if valid is not None:
+        e2 = e2 * valid.to(obs.dtype)
+    return torch.cat([exu, exv], dim=1), e2.sum()
+
+
+def _residual_kernel():
+    lib = _build.library("residual_l2")
+    fn = lib.psba_residual_l2
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + (
+        [ctypes.c_void_p] * 3
+    )
+    fn.restype = ctypes.c_int
+    return fn, lib.psba_residual_l2_per_block()
+
+
+def residual_l2(K, q0, cams, pts, obs, cam_idx, pt_idx, valid=None,
+                clamp=False):
+    """Trial-step residual ex [O, 2] (unmasked) and l2 = sum valid *
+    |ex|^2 (0-d); `valid` [O] optional.
+
+    CPU tensors run the plain version. CUDA tensors (float32, contiguous;
+    cam_idx / pt_idx contiguous int32, ProblemArrays.cam_idx32 / pt_idx32)
+    launch csrc/residual_l2.cu and count one launch; the per-block partial
+    sums of l2 are added outside."""
+    if obs.device.type == "cpu":
+        return residual_l2_plain(K, q0, cams, pts, obs, cam_idx, pt_idx,
+                                 valid=valid, clamp=clamp)
+    floats = dict(K=K, q0=q0, cams=cams, pts=pts, obs=obs)
+    if valid is not None:
+        floats["valid"] = valid
+    dev = _build.cuda_inputs("residual_l2", **floats)
+    O, C, P = obs.shape[0], K.shape[0], pts.shape[0]
+    if (O < 1 or q0.shape != (C, 4) or K.shape != (C, 5)
+            or cams.shape != (C, 6) or pts.shape != (P, 3)
+            or obs.shape != (O, 2)
+            or (valid is not None and valid.shape != (O,))):
+        raise ValueError("residual_l2: inconsistent shapes")
+    if obs.data_ptr() % 8:
+        raise ValueError("residual_l2: obs must be 8-byte aligned")
+    for name, t in (("cam_idx", cam_idx), ("pt_idx", pt_idx)):
+        if (t.device != dev or t.dtype != torch.int32
+                or not t.is_contiguous() or t.shape != (O,)):
+            raise ValueError(f"residual_l2: {name} must be a contiguous "
+                             f"int32 [O] tensor on {dev}")
+    fn, per_block = _residual_kernel()
+    f32 = dict(dtype=torch.float32, device=dev)
+    kq = torch.cat([K, q0], dim=1).contiguous()
+    ex = torch.empty((O, 2), **f32)
+    part = torch.empty((-(-O // per_block),), **f32)
+    err = fn(
+        kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), obs.data_ptr(),
+        cam_idx.data_ptr(), pt_idx.data_ptr(),
+        None if valid is None else valid.data_ptr(), O, int(bool(clamp)),
+        ex.data_ptr(), part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "residual_l2")
+    residual_l2.launches += 1
+    return ex, part.sum()
+
+
+residual_l2.launches = 0

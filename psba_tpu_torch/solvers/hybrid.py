@@ -1,12 +1,13 @@
 """Hybrid LM <-> TR controller (PyTorch counterpart of
 psba_tpu.solvers.hybrid).
 
-`solve` runs damping resolution and OptState.init, then alternates the
-dense3 LM phase (solvers.lm) and the dense3 TR phase (solvers.tr) until
-either returns a flag other than the switch requests. Each switch starts
-the new phase with fresh phase scalars, as the reference calls levmar() /
-trust_region() afresh. Checkpoint / resume covers both phases. The float64
-polish and the pair encoding raise NotImplementedError naming their ROADMAP
+`solve` picks the Schur encoding (dense3, or the covisibility pairs above
+DENSE_MAX_ENTRIES cells or on request), runs damping resolution and
+OptState.init, then alternates the LM phase (solvers.lm) and the TR phase
+(solvers.tr) until either returns a flag other than the switch requests.
+Each switch starts the new phase with fresh phase scalars, as the reference
+calls levmar() / trust_region() afresh. Checkpoint / resume covers both
+phases. The float64 polish raises NotImplementedError naming its ROADMAP
 item.
 """
 
@@ -111,8 +112,11 @@ def solve(
     first phase, "lm" or "tr". `checkpoint_dir` enables checkpointing with
     resume from the newest checkpoint; `checkpoint_every` > 0 also cuts each
     phase into chunks of that many iterations and saves the phase scalars at
-    each boundary, so a resume is exact mid-phase. Points keep the caller's
-    order (point_order "natural")."""
+    each boundary, so a resume is exact mid-phase. `schur` picks the
+    encoding of the reduced camera system: "dense", "pairs" (the
+    covisibility pair list), or "auto" (dense up to
+    solvers.types.DENSE_MAX_ENTRIES camera x point cells, pairs above).
+    Points keep the caller's order (point_order "natural") under both."""
     dt = torch_dtype(problem.pts.dtype if dtype is None else dtype)
     device = _device(device)
     if start not in ("lm", "tr"):

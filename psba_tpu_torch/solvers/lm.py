@@ -1,11 +1,19 @@
-"""Levenberg–Marquardt solver, dense3 path (PyTorch counterpart of the
-dense3 branch of psba_tpu.solvers.lm.lm_run).
+"""Levenberg–Marquardt solver (PyTorch counterpart of the dense3 and the
+covisibility-pair branches of psba_tpu.solvers.lm.lm_run).
 
-One outer iteration linearizes once on the dense grid
-(ops.linearize_dense) and then runs the damping-retry loop: damp U and the
-planar V, invert V (inv3x3_planar3), assemble and solve the reduced camera
-system (schur_S_dense3, reduced_rhs_dense3, spd_solve), back-substitute the
-points and evaluate the trial gain on the dense grid (ops.gain_dense).
+One outer iteration linearizes once and then runs the damping-retry loop:
+damp U and V, invert V, assemble and solve the reduced camera system
+(spd_solve), back-substitute the points and evaluate the trial gain.
+
+  - dense3 (ProblemArrays with the dense tables): everything on the dense
+    grid (ops.linearize_dense with U / ga; inv3x3_planar3, schur_S_dense3,
+    reduced_rhs_dense3, back_substitute_dense3; ops.gain_dense). The
+    residual ex is never formed and stays at its phase-entry value.
+  - pairs (ProblemArrays with the pair list): the observation stream
+    (ops.linearize_stream with the point sums and W; inv3x3, y_blocks,
+    schur_S, reduced_rhs, back_substitute); the trial residual comes from
+    ops.residual_l2, the gain is error_l2_diff(ex, new_ex), and ex is
+    refreshed on accept.
 
 The loops are eager Python. Tensors stay on the device; once per try the
 few scalars that decide acceptance are read to the host in one transfer,
@@ -30,18 +38,26 @@ import numpy as np
 import torch
 
 from psba_tpu_torch import constants as CC
+from psba_tpu_torch.core.hessian import damp_uv, damp_uv_marquardt, max_diag
 from psba_tpu_torch.core.linalg import spd_solve
+from psba_tpu_torch.core.residual import error_l2_diff
 from psba_tpu_torch.core.schur import (
+    back_substitute,
     back_substitute_dense3,
     damp_v_planar,
     damp_v_planar_marquardt,
     diag_v_planar,
+    inv3x3,
     inv3x3_planar3,
     max_diag_planar,
+    reduced_rhs,
     reduced_rhs_dense3,
+    schur_S,
     schur_S_dense3,
+    y_blocks,
 )
 from psba_tpu_torch.ops.linearize_dense import linearize_dense
+from psba_tpu_torch.ops.linearize_stream import linearize_stream, residual_l2
 from psba_tpu_torch.ops.residual_dense import gain_dense
 from psba_tpu_torch.solvers.types import (
     OptState,
@@ -104,27 +120,36 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     elif not cfg.record_history:
         history = None
 
-    cams, pts = state.cams, state.pts
+    cams, pts, ex = state.cams, state.pts, state.ex
     ex_l2 = ft(state.ex_l2.item())
     itno, flag = state.itno, CC.ITER_CONTINUE
+    pairs = pa.pairs
+    clamp = cfg.clamp_quat
     tables = (pa.obs_du, pa.obs_dv, pa.valid_d)
 
     while itno < cap and flag == CC.ITER_CONTINUE:
-        ZW0, ZW1, ZW2, Vp, gbp, _Pp, U, ga = linearize_dense(
-            pa.K, pa.q0, cams, pts, *tables, clamp=cfg.clamp_quat,
-            want_u=True,
-        )
-        ZW3 = (ZW0, ZW1, ZW2)
-        gb = gbp[:, :P].T
+        if pairs:
+            _ex, _l2, U, V, W, ga, gb, _, _ = linearize_stream(
+                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
+                C, P, clamp=clamp, tables=pa.stream,
+            )
+        else:
+            ZW0, ZW1, ZW2, Vp, gbp, _Pp, U, ga = linearize_dense(
+                pa.K, pa.q0, cams, pts, *tables, clamp=clamp, want_u=True,
+            )
+            ZW3 = (ZW0, ZW1, ZW2)
+            gb = gbp[:, :P].T
         if first:
             if marq:
                 mu = ft(cfg.tau)
             else:
-                mu = ft(cfg.tau) * ft(max_diag_planar(U, Vp, P).item())
+                md = max_diag(U, V) if pairs else max_diag_planar(U, Vp, P)
+                mu = ft(cfg.tau) * ft(md.item())
             nu, p_l2 = ft(2.0), ft(1e3)
         if marq:
             dU = torch.diagonal(U, dim1=-2, dim2=-1)
-            dV = diag_v_planar(Vp, P)
+            dV = (torch.diagonal(V, dim1=-2, dim2=-1) if pairs
+                  else diag_v_planar(Vp, P))
             Dc = torch.where(dU > 0.0, dU, torch.ones_like(dU))
             Dp = torch.where(dV > 0.0, dV, torch.ones_like(dV))
 
@@ -132,24 +157,44 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
         while (flag == CC.ITER_CONTINUE and not accepted
                and tries < cfg.max_inner):
             mu_t = float(mu)
-            if marq:
-                U_d = U + (mu_t * Dc)[..., None] * eye6
-                Vp_d = damp_v_planar_marquardt(Vp, mu_t)
+            if pairs:
+                U_d, V_d = (damp_uv_marquardt if marq else damp_uv)(U, V,
+                                                                    mu_t)
+                Vinv, vok = inv3x3(V_d)
+                Y = y_blocks(W, Vinv, pa.pt_idx)
+                S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
+                            pa.pair_bucket, C)
+                ea = reduced_rhs(ga, gb, Y, pa.cam_idx, pa.pt_idx, C)
             else:
-                U_d = U + mu_t * eye6
-                Vp_d = damp_v_planar(Vp, mu_t)
-            Vinv, vok = inv3x3_planar3(Vp_d)
-            S, ZY3 = schur_S_dense3(U_d, ZW3, Vinv)
-            ea = reduced_rhs_dense3(ga, gbp, ZY3)
+                if marq:
+                    U_d = U + (mu_t * Dc)[..., None] * eye6
+                    Vp_d = damp_v_planar_marquardt(Vp, mu_t)
+                else:
+                    U_d = U + mu_t * eye6
+                    Vp_d = damp_v_planar(Vp, mu_t)
+                Vinv, vok = inv3x3_planar3(Vp_d)
+                S, ZY3 = schur_S_dense3(U_d, ZW3, Vinv)
+                ea = reduced_rhs_dense3(ga, gbp, ZY3)
             dpa_flat, ok = spd_solve(S, ea.reshape(-1))
             dpa = dpa_flat.reshape(C, 6)
-            dpb = back_substitute_dense3(gbp, ZW3, Vinv, dpa)[:, :P].T
+            if pairs:
+                _eb, dpb = back_substitute(gb, W, Vinv, dpa, pa.cam_idx,
+                                           pa.pt_idx, P)
+            else:
+                dpb = back_substitute_dense3(gbp, ZW3, Vinv, dpa)[:, :P].T
             new_cams = cams + dpa
             new_pts = pts + dpb
-            gain_t, _new_l2 = gain_dense(
-                pa.K, pa.q0, cams, pts, new_cams, new_pts, *tables,
-                clamp=cfg.clamp_quat,
-            )
+            if pairs:
+                new_ex, _new_l2 = residual_l2(
+                    pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
+                    pa.pt_idx32, None, clamp=clamp,
+                )
+                gain_t = error_l2_diff(ex, new_ex)
+            else:
+                gain_t, _new_l2 = gain_dense(
+                    pa.K, pa.q0, cams, pts, new_cams, new_pts, *tables,
+                    clamp=clamp,
+                )
             if marq:
                 den_c = torch.sum(dpa * (mu_t * Dc * dpa + ga))
                 den_p = torch.sum(dpb * (mu_t * Dp * dpb + gb))
@@ -185,6 +230,8 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 if good >= cfg.lm_switch_count:
                     flag = CC.ITER_TURN_TO_TR
                 cams, pts = new_cams, new_pts
+                if pairs:
+                    ex = new_ex
                 ex_l2 = ex_l2 - gain
                 p_l2 = nc2 + np2
                 mu, nu = mu * shrink, ft(2.0)
@@ -214,7 +261,7 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                            dtype=dtype, device=dev)
     # the loop may end on the iteration budget with flag still CONTINUE
     return OptState(
-        cams=cams, pts=pts, ex=state.ex,
+        cams=cams, pts=pts, ex=ex,
         ex_l2=torch.tensor(ex_l2, dtype=dtype, device=dev),
         itno=itno, flag=flag, history=history, aux=aux,
     )

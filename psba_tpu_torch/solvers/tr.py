@@ -1,11 +1,22 @@
-"""Dogleg trust-region solver, dense3 path (PyTorch counterpart of the
-dense3 branch of psba_tpu.solvers.tr.tr_run).
+"""Dogleg trust-region solver (PyTorch counterpart of the dense3 and the
+covisibility-pair branches of psba_tpu.solvers.tr.tr_run).
 
-One outer iteration linearizes twice: the camera blocks U and the gradient
-ga come from the observation stream (ops.linearize_stream), whose
-camera-ordered reduction is what lets float32 TR reach the optimum (TR
-takes g itself as its Cauchy direction and in the model prediction); ZW, V
-and gb come from the dense grid (ops.linearize_dense). Then:
+The camera blocks U and the gradient ga always come from the observation
+stream (ops.linearize_stream), whose camera-ordered reduction is what lets
+float32 TR reach the optimum (TR takes g itself as its Cauchy direction and
+in the model prediction).
+
+  - dense3: ZW, V and gb come from the dense grid (ops.linearize_dense),
+    the reduced system from the dense3 Schur family, every |J x|^2 from
+    ops.residual_dense.jgram_dense and each trial gain from
+    ops.residual_dense.gain_dense; ex stays the phase-entry value.
+  - pairs: one stream pass gives V, W, gb and the Jacobians A, B as well;
+    the reduced system comes from the pair family (inv3x3, y_blocks,
+    schur_S, reduced_rhs, back_substitute), every |J x|^2 from
+    core.jacobian.jmultiply, each trial residual from ops.residual_l2 with
+    the gain error_l2_diff(ex, new_ex); ex is refreshed on accept.
+
+Then, in both:
 
   - B = 2 J^T J, g = -2 J^T ex; every block carries the factor 2
   - Cauchy step P_U = -(g^T g / g^T B g) g, computed on g divided by its
@@ -19,12 +30,12 @@ and gb come from the dense grid (ops.linearize_dense). Then:
   - the step minimizes the model over span{P_U, P_B} or falls back to the
     scaled P_U / P_B / dogleg (`_subspace_step`)
   - rho = gain / (ex_l2 - L(p)) with L(p) = ex_l2 + g^T p + p^T B p / 2;
-    every p^T B p is an explicit |J p|^2 from ops.residual_dense.jgram_dense
-    (the expansion over the 2x2 Gram of {P_U, P_B} cancels in float32)
+    every p^T B p is an explicit |J p|^2 (jgram_dense or jmultiply above;
+    the expansion over the 2x2 Gram of {P_U, P_B} cancels in float32)
   - radius /4 on rho < 1/4 or a loss, x2 (capped) on rho >= 3/4; a NaN rho
     or 5 consecutive rho < 1/4 hand back to LM; 10 consecutive rho > 3/4
     reset lambda to 0; at most 200 tries per iteration
-  - a tracked step lowers ex_l2 by its gain; ex stays the phase-entry value
+  - a tracked step lowers ex_l2 by its gain
 
 The loops are eager Python, as in solvers.lm: vectors stay on the device,
 the scalars that decide control flow are read to the host once per try and
@@ -39,16 +50,24 @@ import torch.nn.functional as F
 
 from psba_tpu_torch import constants as CC
 from psba_tpu_torch.core.gmw import gmw_bootstrap_lambda
+from psba_tpu_torch.core.hessian import damp_uv
+from psba_tpu_torch.core.jacobian import jmultiply
 from psba_tpu_torch.core.linalg import spd_solve
+from psba_tpu_torch.core.residual import error_l2_diff
 from psba_tpu_torch.core.schur import (
+    back_substitute,
     back_substitute_dense3,
     damp_v_planar,
+    inv3x3,
     inv3x3_planar3,
+    reduced_rhs,
     reduced_rhs_dense3,
+    schur_S,
     schur_S_dense3,
+    y_blocks,
 )
 from psba_tpu_torch.ops.linearize_dense import linearize_dense
-from psba_tpu_torch.ops.linearize_stream import linearize_stream
+from psba_tpu_torch.ops.linearize_stream import linearize_stream, residual_l2
 from psba_tpu_torch.ops.residual_dense import gain_dense, jgram_dense
 from psba_tpu_torch.solvers.types import (
     OptState,
@@ -159,38 +178,54 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     elif not cfg.record_history:
         history = None
 
-    cams, pts = state.cams, state.pts
+    cams, pts, ex = state.cams, state.pts, state.ex
     ex_l2 = ft(state.ex_l2.item())
     itno, flag = state.itno, CC.ITER_CONTINUE
+    pairs = pa.pairs
 
     def jgram(c, p, dirs_c, dirs_p):
         return 2.0 * jgram_dense(pa.K, pa.q0, c, p, pa.valid_d, dirs_c,
                                  dirs_p, clamp=clamp)
 
+    def jx(A, B, x_c, x_p):
+        return jmultiply(A, B, x_c, x_p, pa.cam_idx, pa.pt_idx)
+
     while itno < cap and flag in (CC.ITER_PASS, CC.ITER_CONTINUE):
-        # U / ga from the observation stream, ZW / V / gb from the grid;
         # every block carries the TR coefficient 2
-        _ex, _l2, U1, _, _, ga1, _, _, _ = linearize_stream(
-            pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
-            C, P, clamp=clamp, want_point=False, want_w=False,
-            tables=pa.stream,
-        )
-        ZW0, ZW1, ZW2, Vp1, gbp1, Pp = linearize_dense(
-            pa.K, pa.q0, cams, pts, *grid, clamp=clamp)
-        U = 2.0 * U1
-        Vp = 2.0 * Vp1
-        ZW3 = (2.0 * ZW0, 2.0 * ZW1, 2.0 * ZW2)
-        g_c = -(2.0 * ga1)
-        g_pp3 = -2.0 * gbp1                       # planar [3, Pp]
-        # [P, 3] row-major, so every point vector built from it is too
-        g_p = g_pp3[:, :P].T.contiguous()
+        if pairs:
+            _ex, _l2, U1, V1, W1, ga1, gb1, A, B = linearize_stream(
+                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
+                C, P, clamp=clamp, want_jac=True, tables=pa.stream,
+            )
+            U, V, W = 2.0 * U1, 2.0 * V1, 2.0 * W1
+            g_c, g_p = -(2.0 * ga1), -(2.0 * gb1)
+        else:
+            # U / ga from the observation stream, ZW / V / gb from the grid
+            _ex, _l2, U1, _, _, ga1, _, _, _ = linearize_stream(
+                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
+                C, P, clamp=clamp, want_point=False, want_w=False,
+                tables=pa.stream,
+            )
+            ZW0, ZW1, ZW2, Vp1, gbp1, Pp = linearize_dense(
+                pa.K, pa.q0, cams, pts, *grid, clamp=clamp)
+            U = 2.0 * U1
+            Vp = 2.0 * Vp1
+            ZW3 = (2.0 * ZW0, 2.0 * ZW1, 2.0 * ZW2)
+            g_c = -(2.0 * ga1)
+            g_pp3 = -2.0 * gbp1                       # planar [3, Pp]
+            # [P, 3] row-major, so every point vector built from it is too
+            g_p = g_pp3[:, :P].T.contiguous()
 
         # Cauchy step on g / max|g|
         gm = torch.maximum(torch.max(torch.abs(g_c)),
                            torch.max(torch.abs(g_p)))
         gm = torch.where(gm > 0.0, gm, torch.ones_like(gm))
         gh_c, gh_p = g_c / gm, g_p / gm
-        gtBg_n = jgram(cams, pts, gh_c[None], (g_pp3 / gm)[None])[0, 0]
+        if pairs:
+            Jg = jx(A, B, gh_c, gh_p)
+            gtBg_n = 2.0 * torch.sum(Jg * Jg)
+        else:
+            gtBg_n = jgram(cams, pts, gh_c[None], (g_pp3 / gm)[None])[0, 0]
         gtg_n = _dot(gh_c, gh_p, gh_c, gh_p)
         scal = -(gtg_n / gtBg_n)
         pu_c, pu_p = scal * g_c, scal * g_p
@@ -200,16 +235,29 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
         pb_c, pb_p = torch.zeros_like(cams), torch.zeros_like(pts)
         while not solved and not failed_out and tries < _MAX_SOLVE_TRIES:
             lam_t = float(lam)
-            Vinv, vok = inv3x3_planar3(damp_v_planar(Vp, lam_t))
-            S, ZY3 = schur_S_dense3(U + lam_t * eye6, ZW3, Vinv)
-            ea = reduced_rhs_dense3(g_c, g_pp3, ZY3)
+            if pairs:
+                U_d, V_d = damp_uv(U, V, lam_t)
+                Vinv, vok = inv3x3(V_d)
+                Y = y_blocks(W, Vinv, pa.pt_idx)
+                S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
+                            pa.pair_bucket, C)
+                ea = reduced_rhs(g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C)
+            else:
+                Vinv, vok = inv3x3_planar3(damp_v_planar(Vp, lam_t))
+                S, ZY3 = schur_S_dense3(U + lam_t * eye6, ZW3, Vinv)
+                ea = reduced_rhs_dense3(g_c, g_pp3, ZY3)
             dpa_flat, ok_t = spd_solve(S, ea.reshape(-1))
             # the one host read of the try; a singular V block escalates
             # like a Cholesky failure
             ok = bool(ok_t & vok)
             if ok:
                 dpa = dpa_flat.reshape(C, 6)
-                dpb = back_substitute_dense3(g_pp3, ZW3, Vinv, dpa)[:, :P].T
+                if pairs:
+                    _eb, dpb = back_substitute(g_p, W, Vinv, dpa, pa.cam_idx,
+                                               pa.pt_idx, P)
+                else:
+                    dpb = back_substitute_dense3(g_pp3, ZW3, Vinv,
+                                                 dpa)[:, :P].T
                 pb_c, pb_p = -dpa, -dpb
                 origin = lam
                 nu = ft(2.0)
@@ -235,10 +283,16 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             m_flag = CC.ITER_TURN_TO_LM
         else:
             # curvature scalars, each an explicit |J x|^2
-            pb_pp3 = F.pad(pb_p.T, (0, Pp - P))
-            Gm = jgram(cams, pts, torch.stack([pu_c, pb_c]),
-                       torch.stack([scal * g_pp3, pb_pp3]))
-            pUtBpU, pUtBpB, pBtBpB = Gm[0, 0], Gm[0, 1], Gm[1, 1]
+            if pairs:
+                Jpu, Jpb = jx(A, B, pu_c, pu_p), jx(A, B, pb_c, pb_p)
+                pUtBpU = 2.0 * torch.sum(Jpu * Jpu)
+                pUtBpB = 2.0 * torch.sum(Jpu * Jpb)
+                pBtBpB = 2.0 * torch.sum(Jpb * Jpb)
+            else:
+                pb_pp3 = F.pad(pb_p.T, (0, Pp - P))
+                Gm = jgram(cams, pts, torch.stack([pu_c, pb_c]),
+                           torch.stack([scal * g_pp3, pb_pp3]))
+                pUtBpU, pUtBpB, pBtBpB = Gm[0, 0], Gm[0, 1], Gm[1, 1]
 
         # model / radius loop
         while m_flag == CC.ITER_CONTINUE and m_tries < _MAX_MODEL_TRIES:
@@ -247,10 +301,19 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 pBtBpB, dk,
             )
             new_cams, new_pts = cams + p_c, pts + p_p
-            gain_t, act_t = gain_dense(pa.K, pa.q0, cams, pts, new_cams,
-                                       new_pts, *grid, clamp=clamp)
-            ptBp_t = jgram(cams, pts, p_c[None],
-                           F.pad(p_p.T, (0, Pp - P))[None])[0, 0]
+            if pairs:
+                new_ex, act_t = residual_l2(
+                    pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
+                    pa.pt_idx32, None, clamp=clamp,
+                )
+                gain_t = error_l2_diff(ex, new_ex)
+                Jp = jx(A, B, p_c, p_p)
+                ptBp_t = 2.0 * torch.sum(Jp * Jp)
+            else:
+                gain_t, act_t = gain_dense(pa.K, pa.q0, cams, pts, new_cams,
+                                           new_pts, *grid, clamp=clamp)
+                ptBp_t = jgram(cams, pts, p_c[None],
+                               F.pad(p_p.T, (0, Pp - P))[None])[0, 0]
             # the one host read of the try
             gain, act, gtp, ptBp, p_norm = torch.stack([
                 gain_t, act_t, _dot(g_c, g_p, p_c, p_p), ptBp_t, p_norm_t,
@@ -292,6 +355,8 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 ex_l2 = ex_l2 - gain
             if accept:
                 cams, pts = new_cams, new_pts
+                if pairs:
+                    ex = new_ex
             m_tries += 1
         if m_tries >= _MAX_MODEL_TRIES:
             m_flag = CC.ITER_TURN_TO_LM
@@ -309,7 +374,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                            dtype=dtype, device=dev)
     # the loop may end on the iteration budget with flag still CONTINUE
     return OptState(
-        cams=cams, pts=pts, ex=state.ex,
+        cams=cams, pts=pts, ex=ex,
         ex_l2=torch.tensor(ex_l2, dtype=dtype, device=dev),
         itno=itno, flag=flag, history=history, aux=aux,
     )

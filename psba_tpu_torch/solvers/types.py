@@ -1,5 +1,5 @@
 """Solver configuration and problem / state containers (PyTorch
-counterpart of psba_tpu.solvers.types, dense encoding only)."""
+counterpart of psba_tpu.solvers.types)."""
 
 from __future__ import annotations
 
@@ -15,13 +15,16 @@ from psba_tpu_torch.ops.linearize_stream import (
     build_stream_tables,
 )
 
-# Dense-Schur cap in (camera x point) cells. The dense path holds the three
-# ZW planes and the three ZY planes (144 bytes per cell in float32) plus
-# transients of the same order; 128M cells keeps that under about 40 GB of
-# the H100's 80 GB. Derived from the layout, not measured. Above it the
-# reference switches to the covisibility-pair encoding, which this port
-# does not have yet (ROADMAP Queue 1 item 10).
-DENSE_MAX_ENTRIES = 128 * 1024 * 1024
+# Dense-Schur cap in (camera x point) cells: schur="auto" takes the dense
+# encoding up to it and the covisibility-pair encoding above. The dense S
+# products cost 6C x 6C x 3P multiply-adds whatever the sparsity, the pair
+# products one 6x3 by 3x6 product per covisibility pair. At Dubrovnik-356's
+# counts (356 cameras x 226,730 points = 80.7M cells, 5 observations per
+# point; chip_smoke.py --cap, float32, one H100 80GB HBM3 at 700 W) the
+# dense encoding took 186.8 ms per LM iteration and 21.1 GB of device
+# memory, the pair encoding 29.7 ms and 2.1 GB. So the cap sits below that
+# shape, at the reference's own 32M cells.
+DENSE_MAX_ENTRIES = 32 * 1024 * 1024
 
 _NP_OF_TORCH = {torch.float32: np.float32, torch.float64: np.float64}
 _TORCH_OF_NP = {np.dtype(np.float32): torch.float32,
@@ -113,54 +116,73 @@ def resolve_damping(cfg: SolverConfig, pa: "ProblemArrays", cams,
 
 @dataclasses.dataclass(frozen=True)
 class ProblemArrays:
-    """Problem tensors on one device, dense (camera x point) encoding."""
+    """Problem tensors on one device. Exactly one Schur encoding is
+    present: the dense (camera x point) tables, or the covisibility pair
+    list (problem.build_covis_pairs)."""
 
     K: torch.Tensor         # [C, 5]
     q0: torch.Tensor        # [C, 4]
     obs: torch.Tensor       # [O, 2]
     cam_idx: torch.Tensor   # [O] int64
     pt_idx: torch.Tensor    # [O] int64
-    obs_du: torch.Tensor    # [C, P] measurements (u), 0 where unseen
-    obs_dv: torch.Tensor    # [C, P] measurements (v), 0 where unseen
-    valid_d: torch.Tensor   # [C, P] 1.0 where the cell has an observation
-    # camera-sorted walk of the observation stream (the TR phase's U / ga
-    # kernel, ops.linearize_stream), built once here
+    # int32 copies of the two index streams, read by the residual_l2 kernel
+    cam_idx32: torch.Tensor
+    pt_idx32: torch.Tensor
+    # camera-sorted walk of the observation stream (ops.linearize_stream),
+    # built once here
     stream: StreamTables
+    # dense encoding
+    obs_du: torch.Tensor | None = None   # [C, P] measurements (u), 0 unseen
+    obs_dv: torch.Tensor | None = None   # [C, P] measurements (v), 0 unseen
+    valid_d: torch.Tensor | None = None  # [C, P] 1.0 where observed
+    # pair encoding: observation pairs of one point, sorted by their bucket
+    # cam(o1) * C + cam(o2); bucket C*C marks padding
+    pair_o1: torch.Tensor | None = None      # [N] int64
+    pair_o2: torch.Tensor | None = None      # [N] int64
+    pair_bucket: torch.Tensor | None = None  # [N] int64
 
     @staticmethod
     def from_problem(prob, dtype=None, device="cpu",
                      schur="auto") -> "ProblemArrays":
         """Build the tensors of a psba_tpu_torch.problem.BAProblem on
         `device` in `dtype` (default: the problem's own), with the stream
-        tables of the camera-ordered walk. Only the dense encoding exists
-        in this port; "pairs", or a problem above DENSE_MAX_ENTRIES cells,
-        raises NotImplementedError."""
+        tables of the camera-ordered walk. `schur` picks the encoding:
+        "dense", "pairs", or "auto" (dense up to DENSE_MAX_ENTRIES camera x
+        point cells, pairs above)."""
         if schur not in ("auto", "dense", "pairs"):
             raise ValueError(f"schur={schur!r}")
-        if schur == "pairs" or (
-            schur == "auto"
-            and prob.n_cams * prob.n_pts > DENSE_MAX_ENTRIES
-        ):
-            raise NotImplementedError(
-                "covisibility-pair Schur encoding: not ported yet "
-                "(ROADMAP Queue 1 item 10)"
-            )
-        from psba_tpu_torch.ops.linearize_dense import dense_obs_tables
-
+        if schur == "auto":
+            schur = ("dense" if prob.n_cams * prob.n_pts <= DENSE_MAX_ENTRIES
+                     else "pairs")
         dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)
-        prob = prob.with_blk()
-        du, dv, vd = dense_obs_tables(prob.blk_idx, prob.obs, prob.n_obs,
-                                      dtype=np_dtype(dt))
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-        i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
-                                      device=device)
+        i = lambda a, kind=torch.int64: torch.as_tensor(
+            np.asarray(a), dtype=kind, device=device)
+        if schur == "dense":
+            from psba_tpu_torch.ops.linearize_dense import dense_obs_tables
+
+            prob = prob.with_blk()
+            du, dv, vd = dense_obs_tables(prob.blk_idx, prob.obs,
+                                          prob.n_obs, dtype=np_dtype(dt))
+            enc = dict(obs_du=f(du), obs_dv=f(dv), valid_d=f(vd))
+        else:
+            prob = prob.with_pairs()
+            enc = dict(pair_o1=i(prob.pair_o1), pair_o2=i(prob.pair_o2),
+                       pair_bucket=i(prob.pair_bucket))
         return ProblemArrays(
             K=f(prob.K), q0=f(prob.q0), obs=f(prob.obs),
             cam_idx=i(prob.cam_idx), pt_idx=i(prob.pt_idx),
-            obs_du=f(du), obs_dv=f(dv), valid_d=f(vd),
+            cam_idx32=i(prob.cam_idx, torch.int32),
+            pt_idx32=i(prob.pt_idx, torch.int32),
             stream=build_stream_tables(prob.cam_idx, prob.pt_idx,
                                        prob.n_cams, device=device),
+            **enc,
         )
+
+    @property
+    def pairs(self) -> bool:
+        """True under the pair encoding."""
+        return self.pair_o1 is not None
 
     @property
     def n_cams(self) -> int:
@@ -176,8 +198,10 @@ class OptState:
     """Parameters and solver scalars shared by the LM and TR phases and
     `solve`.
 
-    `ex` is the residual at phase entry: the dense path computes trial
-    gains on the grid and never refreshes it mid-phase (as the reference).
+    `ex` is the residual: the pair path refreshes it on every accepted
+    step (its trial gains are error_l2_diff(ex, new_ex)); the dense path
+    computes trial gains on the grid and leaves it at its phase-entry value
+    (as the reference).
     `history` rows are (itno, ex_l2, rho, mu, nan, nan) for LM iterations
     and (itno, act, rho, lambda, delta, p_norm) for TR iterations, NaN
     where unused. `aux` is the phase-scalar carry for chunked

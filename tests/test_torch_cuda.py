@@ -218,3 +218,51 @@ def test_default_solve_on_cuda_matches_cpu(cuda):
     assert [p[0] for p in r_gpu.phases] == [p[0] for p in r_cpu.phases]
     assert r_gpu.flag == r_cpu.flag
     np.testing.assert_allclose(r_gpu.final_l2, r_cpu.final_l2, rtol=1e-3)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_residual_l2_kernel_matches_plain(cuda, masked):
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    prob, pa, cams, pts = _problem(cuda, seed=4)
+    O = prob.n_obs
+    valid = None
+    if masked:
+        valid = (torch.arange(O, device=cuda) < O - 7).to(torch.float32)
+    args = (pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx32, pa.pt_idx32, valid)
+    before = ls.residual_l2.launches
+    ex, l2 = ls.residual_l2(*args)
+    torch.cuda.synchronize()
+    assert ls.residual_l2.launches == before + 1
+    ex_p, l2_p = ls.residual_l2_plain(*args)
+    # ex = obs - proj, each rounding the projection (~1e3 px) in float32,
+    # the kernel with fused multiply-adds: 1e-4 of max |ex| as chip_smoke.py
+    # and linearize_stream's ex; l2 a sum in another order, 1e-5
+    assert _rel(ex, ex_p) < 1e-4 and _rel(l2, l2_p) < 1e-5
+    with pytest.raises(ValueError, match="int32"):
+        ls.residual_l2(*args[:5], pa.cam_idx, pa.pt_idx, valid)
+
+
+def test_pairs_solve_on_cuda_matches_cpu(cuda):
+    """mini_bal on the pair encoding, LM only, 20 iterations: the same flag
+    and iteration count as on the CPU, final L2 within 1e-3, and the same
+    final L2 as the dense path on the card within 1e-3."""
+    import psba_tpu_torch
+    from psba_tpu_torch.io import bal_to_problem
+    from psba_tpu_torch.ops import linearize_stream as ls
+    from psba_tpu_torch.solvers import SolverConfig
+
+    prob = bal_to_problem(str(REPO / "tests" / "data" / "mini_bal.txt"))
+    cfg = SolverConfig.for_dtype(torch.float32, lm_switch_count=10_000,
+                                 max_iters=20, record_history=True)
+    before = ls.residual_l2.launches
+    r_gpu = psba_tpu_torch.solve(prob, cfg, dtype=torch.float32,
+                                 device=cuda, schur="pairs")
+    assert ls.residual_l2.launches > before
+    r_cpu = psba_tpu_torch.solve(prob, cfg, dtype=torch.float32,
+                                 device="cpu", schur="pairs")
+    r_dense = psba_tpu_torch.solve(prob, cfg, dtype=torch.float32,
+                                   device=cuda, schur="dense")
+    assert r_gpu.flag == r_cpu.flag and r_gpu.iterations == r_cpu.iterations
+    np.testing.assert_allclose(r_gpu.final_l2, r_cpu.final_l2, rtol=1e-3)
+    np.testing.assert_allclose(r_gpu.final_l2, r_dense.final_l2, rtol=1e-3)

@@ -71,3 +71,21 @@ def test_problem_tables_match_reference(name):
                                   jprob.visibility_mask(jp))
     assert p.with_blk().blk_idx.shape == (C, P)
     assert dataclasses.replace(p.with_pairs()).pair_o1 is not None
+
+
+@pytest.mark.parametrize("n_cams,n_pts,mean_obs", [(40, 3000, 9.0),
+                                                   (30, 9000, 5.0)])
+def test_synthesize_points_matches_reference(tmp_path, n_cams, n_pts,
+                                             mean_obs):
+    """synthesize_points_for_cams on cameras of the synthetic ring (written
+    as a 12-column camera file, look_sign +1): the port's chunked
+    visibility pass gives the reference's arrays exactly, across the chunk
+    boundary (9,000 points) too."""
+    ring = tio.synthetic_problem(n_cams=n_cams, n_pts=50, seed=0)
+    path = str(tmp_path / "cams.txt")
+    tio.sba_text.write_cams(path, ring.K, ring.q0, ring.cams)
+    kw = dict(n_pts=n_pts, mean_obs=mean_obs, look_sign=1.0, seed=0)
+    got = tio.synthesize_points_for_cams(path, **kw)
+    ref = jio.synthesize_points_for_cams(path, **kw)
+    got.validate()
+    _same(got, ref)

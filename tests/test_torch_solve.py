@@ -139,16 +139,14 @@ def test_checkpoint_point_order_mismatch_raises(prob_synth, tmp_path):
         _solve(prob_synth, _cfg(), checkpoint_dir=str(tmp_path))
 
 
-@pytest.mark.parametrize("case", ["polish", "pairs", "s_precision_high",
-                                  "xla"])
+@pytest.mark.parametrize("case", ["polish", "s_precision_high", "xla"])
 def test_next_slices_raise(prob_synth, case):
-    """The port ends where the f64 polish and the other encodings begin:
-    each raises NotImplementedError instead of stopping quietly."""
+    """The port ends where the f64 polish, the XLA-form path and the
+    "high" S precision begin: each raises NotImplementedError instead of
+    stopping quietly."""
     kw, cfg = {}, _cfg()
     if case == "polish":
         kw = dict(polish_iters=2)
-    elif case == "pairs":
-        kw = dict(schur="pairs")
     elif case == "s_precision_high":
         cfg = cfg._replace(s_precision="high")
     else:
@@ -166,8 +164,8 @@ def test_solve_without_device_needs_a_card(prob_synth, monkeypatch):
 
 
 def test_import_and_solve_without_jax():
-    """Importing the port and running a small CPU solve never imports jax
-    or any module of psba_tpu."""
+    """Importing the port and running small CPU solves, dense and on the
+    covisibility pairs, never imports jax or any module of psba_tpu."""
     code = (
         "import sys, torch\n"
         "import psba_tpu_torch\n"
@@ -178,6 +176,9 @@ def test_import_and_solve_without_jax():
         "r = psba_tpu_torch.solve(p, cfg, dtype=torch.float32, "
         "device='cpu')\n"
         "assert r.final_l2 < r.initial_l2, r\n"
+        "q = psba_tpu_torch.solve(p, cfg, dtype=torch.float32, "
+        "device='cpu', schur='pairs')\n"
+        "assert q.final_l2 < q.initial_l2, q\n"
         "bad = [m for m in sys.modules if m in ('jax', 'psba_tpu') or "
         "m.startswith(('jax.', 'jaxlib', 'psba_tpu.'))]\n"
         "assert not bad, bad\n"
