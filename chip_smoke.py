@@ -9,19 +9,25 @@
     python3 chip_smoke.py --cap        # also ms per LM iteration of the
                                        # dense and the pair encoding at
                                        # Dubrovnik-356's counts
+    python3 chip_smoke.py --spread     # also phase 4p's "pairs, default 15"
+                                       # check 100 times in four arms (see
+                                       # spread_measurement)
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. environment: CUDA present, card name and power limit, kernels built
      from psba_tpu_torch/csrc (nvcc, all sources at once, seconds printed);
   2. every kernel against its plain PyTorch version on CUDA tensors at the
-     main paths' shapes (the trial-step residual at final961_pairs below;
-     the others at 138 cameras x 19,878 requested points, the counts of
-     BAL's Ladybug-138: n = 126 / 828 reduced systems, the observation
-     stream with the TR flags and with every flag, the J-gram at n = 1, 2,
-     3), with the tolerance stated, CUDA-event times (median after warm-up),
-     each kernel's device time from the profiler, its bound (the larger of
-     bytes over HBM bandwidth and flops over the float32 rate) and, where one
-     PyTorch call computes the same function, that call's time;
+     main paths' shapes (the trial-step residual and the observation stream
+     with the pair path's LM and TR flags at final961_pairs below; the
+     others at 138 cameras x 19,878 requested points, the counts of BAL's
+     Ladybug-138: n = 126 / 828 reduced systems and n = 1024, the largest
+     the kernel takes, each at every cluster size the card schedules, the
+     observation stream with the TR flags and with every flag, the J-gram
+     at n = 1, 2, 3), with the tolerance stated, CUDA-event times (median
+     after warm-up), each kernel's device time from the profiler, its bound
+     (the larger of bytes over HBM bandwidth and flops over the float32
+     rate) and, where one PyTorch call computes the same function, that
+     call's time;
   3. the dense main paths, each with the launch counters reset just before
      and read just after: psba_tpu_torch.solve in float32 with the LM->TR
      switch off (the LM path, three kernels), then with the default
@@ -36,7 +42,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      camera appended (the GMW bootstrap), on CUDA and on the CPU;
   4. tests/data/mini_bal.txt on CUDA and on the CPU (plain versions), with
      the LM-only and the default config, held together;
-  4p. the same on the pair encoding, and pairs against dense on CUDA;
+  4p. the same on the pair encoding (where two CUDA runs of a fixed budget
+     must also give the same final_l2), and pairs against dense on CUDA;
   5. a JSON line of the kernels, then, last, the device JSON line.
 It imports nothing of JAX.
 """
@@ -71,6 +78,9 @@ GAIN_DENSE_FLOPS = 2 * CELL_RESIDUAL_FLOPS + 8
 LINEARIZE_STREAM_FLOPS = CELL_LINEARIZE_FLOPS + 132
 # the trial-step residual and its masked square (4)
 RESIDUAL_L2_FLOPS = CELL_RESIDUAL_FLOPS + 4
+# the stream with the pair path's flags: W = A^T B (54), B^T B (27),
+# B^T ex (12), the mask of B (6)
+PAIR_STREAM_FLOPS = LINEARIZE_STREAM_FLOPS + 99
 
 # The pair path's configuration, final961_pairs: BAL's Final-961 camera and
 # point counts (961 cameras, 187,103 points) on the synthetic ring, about 9
@@ -237,6 +247,74 @@ def check_residual_l2(prob, dev):
     return row, args
 
 
+def check_pair_stream(prob, rargs, dev):
+    """linearize_stream with the pair path's flags at `prob`'s shape: the
+    LM flags (W and the point sums V, gb) and the TR flags (also A, B),
+    each against its plain version with a valid mask, then timed without
+    one, each with its own bound. Returns (the fields for the kernel's row,
+    the timed calls for the profiler)."""
+    import torch
+
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    f32 = torch.float32
+    C, P, O = prob.n_cams, prob.n_pts, prob.n_obs
+    t0 = time.perf_counter()
+    tables = ls.build_stream_tables(prob.cam_idx, prob.pt_idx, C, P,
+                                    device=dev)
+    print(f"  stream tables: {tables.chunks.shape[0]} camera chunks, "
+          f"{tables.runs.shape[0]} point runs, {tables.n_pieces} pieces "
+          f"(built in {time.perf_counter() - t0:.2f} s)", flush=True)
+    K, q0, cams, pts, obs = rargs[:5]
+    args = (K, q0, cams, pts, obs,
+            torch.as_tensor(prob.cam_idx, dtype=torch.int64, device=dev),
+            torch.as_tensor(prob.pt_idx, dtype=torch.int64, device=dev))
+    valid = (torch.arange(O, device=dev) < O - 1000).to(f32)
+    names = ("ex", "l2", "U", "V", "W", "ga", "gb", "A", "B")
+    # as the 138-camera stream check: ex 1e-4 of max |ex|; A, B, W 1e-5;
+    # sums in another order 1e-4 (U, V, l2), residual-weighted 1e-3
+    tols = dict(ex=1e-4, l2=1e-4, U=1e-4, V=1e-4, W=1e-5, ga=1e-3, gb=1e-3,
+                A=1e-5, B=1e-5)
+    out, calls = {}, {}
+    errs = []
+    cam_bytes = 4 * 15 * C
+    for label, kw, extra in (("pairs_lm", {}, 0),
+                             ("pairs_tr", dict(want_jac=True), 72)):
+        got = ls.linearize_stream(*args, valid, C, P, tables=tables, **kw)
+        ref = ls.linearize_stream_plain(*args, valid, C, P, **kw)
+        torch.cuda.synchronize()
+        for name, a, r in zip(names, got, ref):
+            need((a is None) == (r is None), f"linearize_stream {name} slot")
+            if a is not None:
+                errs.append(compare(f"linearize_stream[{label}] {name}", a,
+                                    r, tols[name]))
+        again = ls.linearize_stream(*args, valid, C, P, tables=tables, **kw)
+        for i in (2, 3, 5, 6):
+            need(bool((again[i] == got[i]).all()),
+                 f"linearize_stream[{label}]: {names[i]} differs between "
+                 "two calls")
+        del got, ref, again
+        calls[label] = (lambda kw=kw: ls.linearize_stream(
+            *args, None, C, P, tables=tables, **kw))
+        out[f"ms_{label}"] = cuda_ms(calls[label])
+        out[f"plain_ms_{label}"] = cuda_ms(
+            lambda kw=kw: ls.linearize_stream_plain(*args, None, C, P, **kw),
+            warmup=1, runs=5)
+        # reads K | q0 | cams, the points, obs and the two int32 index
+        # streams once; writes ex and W (and A, B), V | gb per point, U, ga
+        b = bound(cam_bytes + 12 * P + O * (8 + 4 + 4 + 8 + 72 + extra)
+                  + 48 * P + 4 * 42 * C, PAIR_STREAM_FLOPS * O)
+        out.update({f"{k}_{label}": v for k, v in b.items()})
+        print(f"  linearize_stream[{label}]: wrapper {out[f'ms_{label}']:.4f}"
+              f" ms, plain {out[f'plain_ms_{label}']:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    print("  linearize_stream pair flags: V, gb, U, ga bit-identical over "
+          "two calls", flush=True)
+    out["max_abs_err_pairs"] = max(e for e, _ in errs)
+    out["max_rel_err_pairs"] = max(r for _, r in errs)
+    return out, calls
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -277,6 +355,7 @@ def main(argv) -> int:
           f"{big.n_cams * big.n_pts} cells (built in {big_s:.1f} s)",
           flush=True)
     rows["residual_l2"], rargs = check_residual_l2(big, dev)
+    pair_stream, pair_calls = check_pair_stream(big, rargs, dev)
 
     t0 = time.perf_counter()
     prob = synthetic_problem(n_cams=138, n_pts=19878, seed=0)
@@ -347,7 +426,11 @@ def main(argv) -> int:
     )
 
     chol_errs, chol_ms, chol_plain_ms, chol_lib_ms = [], {}, {}, {}
-    for n in (126, 828):
+    chol_by_cluster = {}
+    max_cluster = chol.max_cluster()
+    print(f"  spd_solve: largest cluster the device schedules {max_cluster}",
+          flush=True)
+    for n in (126, 828, 1024):
         g = np.random.default_rng(n)
         A = g.standard_normal((n, n))
         S = torch.as_tensor(A @ A.T + n * np.eye(n), dtype=f32, device=dev)
@@ -369,15 +452,30 @@ def main(argv) -> int:
         k2 = cuda_ms(lambda: chol.spd_solve(S, b))
         chol_ms[n], chol_lib_ms[n] = min(k1, k2), min(l1, l2)
         chol_plain_ms[n] = cuda_ms(lambda: chol.spd_solve_plain(S, b))
-        print(f"  spd_solve n={n}: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"cholesky_ex + cholesky_solve {l1:.4f} / {l2:.4f} ms, plain "
-              f"{chol_plain_ms[n]:.4f} ms", flush=True)
-    S_bad = torch.eye(828, device=dev)
-    S_bad[5, 5] = -2.0
-    x_bad, ok_bad = chol.spd_solve(S_bad, torch.ones(828, device=dev))
-    need(not bool(ok_bad) and bool((x_bad == 0).all()),
-         "spd_solve: indefinite matrix not flagged with x = 0")
-    print("  spd_solve indefinite n=828: ok=False, x=0", flush=True)
+        # every cluster size the device schedules, for the default's choice
+        sweep, cs = {}, 1
+        while cs <= max_cluster:
+            x_c, ok_c = chol._launch(S, b, cs)
+            compare(f"spd_solve n={n} cluster={cs}", x_c, x_p, 5e-5)
+            sweep[cs] = cuda_ms(lambda cs=cs: chol._launch(S, b, cs))
+            cs *= 2
+        chol_by_cluster[n] = sweep
+        print(f"  spd_solve n={n} (cluster "
+              f"{chol.cluster_size(n, max_cluster)}): kernel {k1:.4f} / "
+              f"{k2:.4f} ms, cholesky_ex + cholesky_solve {l1:.4f} / "
+              f"{l2:.4f} ms, plain {chol_plain_ms[n]:.4f} ms; by cluster "
+              f"size {({c: round(t, 4) for c, t in sweep.items()})}",
+              flush=True)
+        if n == 828:
+            S828, b828 = S, b
+    for i in (5, 13 * 32 + 7, 826):
+        S_bad = S828.clone()
+        S_bad[i, i] = -2.0
+        x_bad, ok_bad = chol.spd_solve(S_bad, b828)
+        need(not bool(ok_bad) and bool((x_bad == 0).all()),
+             f"spd_solve: indefinite pivot {i} not flagged with x = 0")
+    print("  spd_solve indefinite n=828 (pivot in the first, a middle and "
+          "the last panel): ok=False, x=0", flush=True)
     n = 828
     rows["spd_solve"] = dict(
         max_abs_err=max(e for e, _ in chol_errs),
@@ -385,6 +483,9 @@ def main(argv) -> int:
         ms=chol_ms[n], plain_ms=chol_plain_ms[n], library_ms=chol_lib_ms[n],
         ms_n126=chol_ms[126], plain_ms_n126=chol_plain_ms[126],
         library_ms_n126=chol_lib_ms[126],
+        ms_n1024=chol_ms[1024], plain_ms_n1024=chol_plain_ms[1024],
+        library_ms_n1024=chol_lib_ms[1024],
+        ms_by_cluster=chol_by_cluster, max_cluster=max_cluster,
         # factor n^3/3, two triangular solves 2 n^2
         **bound(4 * (n * n + 2 * n), n ** 3 / 3 + 2 * n * n),
     )
@@ -470,12 +571,11 @@ def main(argv) -> int:
     # its torch epilogue and launch gaps): profiler, mean of 10 calls
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    S828 = S
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             ld.linearize_dense(*args, want_u=True)
             rd.gain_dense(*gargs)
-            chol.spd_solve(S828, b)
+            chol.spd_solve(S828, b828)
             ls.linearize_stream(*sargs, None, C, P, tables=pa.stream,
                                 **tr_flags)
             rd.jgram_dense(*j2)
@@ -485,6 +585,32 @@ def main(argv) -> int:
         for k in rows:
             if f"(anonymous namespace)::{k}_kernel" in e.key:
                 rows[k]["kernel_ms"] = e.self_device_time_total / 1e3 / e.count
+    # the pair flags run the camera pass and the point pass: their device
+    # times, each a mean over 10 calls, and their sum
+    for label, call in pair_calls.items():
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            for kname in ("linearize_stream_kernel",
+                          "linearize_stream_points_kernel"):
+                if f"(anonymous namespace)::{kname}" in e.key:
+                    parts[kname] = e.self_device_time_total / 1e3 / 10
+        need(len(parts) == 2, f"linearize_stream[{label}]: the profiler saw "
+             f"{sorted(parts)}, not both passes")
+        pair_stream[f"kernel_ms_{label}"] = sum(parts.values())
+        pair_stream[f"kernel_ms_{label}_passes"] = parts
+        print(f"[2] linearize_stream[{label}]: wrapper "
+              f"{pair_stream[f'ms_{label}']:.4f} ms (kernels alone "
+              f"{sum(parts.values()):.4f} ms: camera pass "
+              f"{parts['linearize_stream_kernel']:.4f}, point pass "
+              f"{parts['linearize_stream_points_kernel']:.4f}), plain "
+              f"{pair_stream[f'plain_ms_{label}']:.4f} ms, bound "
+              f"{pair_stream[f'bound_ms_{label}']:.4f} ms", flush=True)
+    rows["linearize_stream"].update(pair_stream)
+    del pair_calls
     for k, v in rows.items():
         need("kernel_ms" in v, f"{k}: kernel not seen by the profiler")
         lib = ("none" if v["library_ms"] is None
@@ -507,10 +633,14 @@ def main(argv) -> int:
     def reset():
         for fn in kern.values():
             fn.launches = 0
+        ls.linearize_stream.point_launches = 0
         linalg.spd_solve.oversized_launches = 0
 
     def read():
-        return {k: fn.launches for k, fn in kern.items()}
+        got = {k: fn.launches for k, fn in kern.items()}
+        got["linearize_stream_point_pass"] = (
+            ls.linearize_stream.point_launches)
+        return got
 
     gmw_log = []
     gmw_real = trmod.gmw_bootstrap_lambda
@@ -621,7 +751,8 @@ def main(argv) -> int:
         need(r.cams.shape == big.cams.shape and np.isfinite(r.cams).all()
              and np.isfinite(r.pts).all(),
              f"pair path, {label}: output parameters malformed")
-        for k in ("linearize_stream", "residual_l2"):
+        for k in ("linearize_stream", "linearize_stream_point_pass",
+                  "residual_l2"):
             need(got[k] > 0, f"pair path, {label}: kernel {k} not launched")
         for k in ("linearize_dense", "gain_dense", "jgram_dense"):
             need(got[k] == 0, f"pair path, {label}: dense kernel {k} "
@@ -687,6 +818,13 @@ def main(argv) -> int:
                   flush=True)
             label = f"{schur}, {label}"
             need(rel <= 1e-3, f"{label}: CUDA and CPU final_l2 disagree")
+            if schur == "pairs" and strict:
+                # the pair path sums in a fixed order: a second CUDA run
+                # gives the same bits
+                again = psba_tpu_torch.solve(mini, c, dtype=f32, device=dev,
+                                             schur=schur)
+                need(again.final_l2 == r_gpu.final_l2,
+                     f"{label}: two CUDA runs give different final_l2")
             if strict:
                 need(r_gpu.flag == r_cpu.flag
                      and r_gpu.phases == r_cpu.phases,
@@ -729,6 +867,7 @@ def main(argv) -> int:
                         "psba_tpu/ops/linearize_pallas.py:347"),
     }
     pd, pl = pair_runs["default"], pair_runs["LM path"]
+    src_names = list(src)
     # launches: the two default solves (dense 3b and pairs 3p) together,
     # then each main path on its own
     kernels = [
@@ -740,8 +879,16 @@ def main(argv) -> int:
              launches_pairs_lm_path=pl["launches"][k], **rows[k])
         for k in src
     ]
+    kernels[src_names.index("linearize_stream")]["launches_point_pass"] = {
+        path: got["linearize_stream_point_pass"]
+        for path, got in (("dense_default", launches),
+                          ("dense_lm_path", launches_lm),
+                          ("pairs_default", pd["launches"]),
+                          ("pairs_lm_path", pl["launches"]))}
     if "--cap" in argv:
         cap_measurement(cfg_lm, dev)
+    if "--spread" in argv:
+        spread_measurement(mini, cfg, dev)
     print(f"[5] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi_line(), flush=True)
     pairs_line = {
@@ -804,6 +951,67 @@ def cap_measurement(cfg_lm, dev) -> None:
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
               flush=True)
         torch.cuda.empty_cache()
+
+
+def spread_measurement(mini, cfg, dev, runs: int = 100) -> None:
+    """Phase 4p's "pairs, default 15" check (mini_bal, 15 iterations of the
+    default config on the pair encoding: LM to 14, one TR step from the GMW
+    bootstrap) run `runs` times on CUDA in four arms, each reading
+    |final_l2 - CPU final_l2| / CPU final_l2 against one CPU run: as
+    shipped (the pair path's bucket sums S, ea, eb by ops.reduce
+    .indexed_sum, in a fixed order); with those sums by `index_add_` on the
+    card (float atomics); with them on the host; and that with the reduced
+    system solved by spd_solve's plain version on the card instead of the
+    kernel. Prints each arm's readings (sorted) and writes them to
+    chiprun_out/spread.json."""
+    import numpy as np
+    import torch
+
+    import psba_tpu_torch
+    from psba_tpu_torch.core import schur as schur_mod
+    from psba_tpu_torch.ops import cholesky as chol
+    from psba_tpu_torch.ops import reduce as red
+
+    f32 = torch.float32
+    c15 = cfg._replace(max_iters=15)
+    ref = psba_tpu_torch.solve(mini, c15, dtype=f32, device="cpu",
+                               schur="pairs").final_l2
+
+    def atomic_sum(data, idx, n):
+        idx = idx.long()
+        idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+        out = torch.zeros((n + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
+                          device=data.device)
+        return out.index_add_(0, idx, data)[:n]
+
+    def host_sum(data, idx, n):
+        return red.indexed_sum(data.cpu(), idx.cpu(), n).to(data.device)
+
+    kernel_solve, shipped_sum = chol.spd_solve, schur_mod.indexed_sum
+    arms = (("as shipped", shipped_sum, kernel_solve),
+            ("bucket sums by index_add_ on the card", atomic_sum,
+             kernel_solve),
+            ("bucket sums on the host", host_sum, kernel_solve),
+            ("bucket sums on the host, plain spd_solve", host_sum,
+             chol.spd_solve_plain))
+    out = {}
+    try:
+        for label, summer, solver in arms:
+            schur_mod.indexed_sum, chol.spd_solve = summer, solver
+            rel = sorted(
+                abs(psba_tpu_torch.solve(mini, c15, dtype=f32, device=dev,
+                                         schur="pairs").final_l2 - ref) / ref
+                for _ in range(runs))
+            out[label] = rel
+            print(f"[spread] {label}: {runs} runs, min {rel[0]:.3e}, median "
+                  f"{float(np.median(rel)):.3e}, max {rel[-1]:.3e}, "
+                  f"{len(set(rel))} distinct, {sum(r > 1e-3 for r in rel)} "
+                  f"over 1e-3", flush=True)
+    finally:
+        schur_mod.indexed_sum, chol.spd_solve = shipped_sum, kernel_solve
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "spread.json"), "w") as f:
+        json.dump(out, f)
 
 
 def profile(prob, cfg, dev, schur) -> None:

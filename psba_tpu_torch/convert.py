@@ -54,12 +54,12 @@ def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
         kind = torch.int64 if np.issubdtype(a.dtype, np.integer) else dt
         out[k] = torch.tensor(a, dtype=kind, device=device)
     cam_idx, pt_idx = np.asarray(get("cam_idx")), np.asarray(get("pt_idx"))
-    out["cam_idx32"] = torch.tensor(cam_idx, dtype=torch.int32, device=device)
-    out["pt_idx32"] = torch.tensor(pt_idx, dtype=torch.int32, device=device)
-    out["stream"] = build_stream_tables(cam_idx, pt_idx, out["K"].shape[0],
-                                        device=device)
     as_t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=device)
-    return ProblemArrays(**out), as_t(cams_np), as_t(pts_np)
+    pts = as_t(pts_np)
+    out["stream"] = st = build_stream_tables(
+        cam_idx, pt_idx, out["K"].shape[0], pts.shape[0], device=device)
+    out["cam_idx32"], out["pt_idx32"] = st.cam32, st.pt32
+    return ProblemArrays(**out), as_t(cams_np), pts
 
 
 def state_from_reference(st_np, device="cpu", dtype=None) -> OptState:

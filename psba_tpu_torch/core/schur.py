@@ -20,7 +20,7 @@ static covisibility pair list of problem.build_covis_pairs:
   eb_i   = gb_i - sum_{o: pt(o)=i} W_o^T dpa_{j(o)};  dpb_i = Vinv_i eb_i
 
 The pair products are one batched (6x3)(3x6) product over the pairs and
-one bucket sum (ops.reduce.indexed_sum, `index_add_`).
+one bucket sum (ops.reduce.indexed_sum, in a fixed order on the card).
 
 The products are plain matrix products (cuBLAS on the card), pinned to
 true float32: TF32 would keep about three decimal digits of S, which caps

@@ -16,9 +16,11 @@ masks A, B, W, the packs and l2; ex stays unmasked. All outputs are
 coefficient-free (callers scale by the LM / TR convention).
 
 `linearize_stream` launches csrc/linearize_stream.cu on CUDA tensors
-(float32) and runs `linearize_stream_plain` on CPU tensors. The kernel walks
-the observations in camera order; `StreamTables` holds that order and the
-per-block runs, built once per problem (ProblemArrays.stream).
+(float32) and runs `linearize_stream_plain` on CPU tensors. The kernel
+walks the observations twice: in camera order for the camera sums, and in
+their own point-sorted order for the per-observation outputs and the point
+sums, each without atomics. `StreamTables` holds both walks, built once per
+problem (ProblemArrays.stream).
 
 `residual_l2` is the trial step of the pair-encoding LM / TR loops: ex [O, 2]
 (unmasked) and l2 = sum valid * |ex|^2 at new parameters, launching
@@ -42,27 +44,82 @@ from psba_tpu_torch.ops.linearize_dense import (
     cell_residual,
 )
 
-# observations per block of the kernel (one camera per block), and the
-# per-block pack: 21 upper-triangle U entries, 6 ga entries, l2
+# observations per block of the camera pass (one camera per block), the
+# per-block pack (21 upper-triangle U entries, 6 ga entries, l2), and the
+# observations per block of the point pass
 CHUNK = 1024
 PACK = 28
+RUN = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class StreamTables:
-    """Camera-sorted walk of the observation stream for the kernel."""
+    """The kernel's two walks of the observation stream: camera-sorted
+    chunks for the camera sums, point-sorted runs for the per-observation
+    outputs and the point sums."""
 
     perm: torch.Tensor     # [O] int32, observation indices sorted by camera
     pt_of: torch.Tensor    # [O] int32, pt_idx[perm]
     chunks: torch.Tensor   # [n_chunks, 4] int32: camera, start, count, slot
     max_chunks: int        # most blocks any camera has
+    cam32: torch.Tensor    # [O] int32 copy of cam_idx
+    pt32: torch.Tensor     # [O] int32 copy of pt_idx
+    runs: torch.Tensor     # [n_runs, 5] int32, see build_point_runs
+    split_pt: torch.Tensor     # [n_split] int64, points cut into pieces
+    split_piece: torch.Tensor  # [n_split, max_pieces] int64 piece rows,
+                               # n_pieces where a point has fewer
+    n_pieces: int
+    n_pts: int
 
 
-def build_stream_tables(cam_idx, pt_idx, n_cams: int,
+def build_point_runs(pt_idx, n_pts: int):
+    """Runs of the point pass over point-sorted observations, each at most
+    RUN observations and at most RUN points, cut at point boundaries.
+
+    Returns (runs [n_runs, 5] int64: first observation, count, first point,
+    number of points, piece; pieces [n_split] list of piece-index lists;
+    split points [n_split]). A run with piece -1 holds the whole of its
+    points (some may have no observation; together the runs tile 0..n_pts-1
+    apart from the split points). A point with more than RUN observations
+    is cut into runs of its own, piece 0, 1, ... in observation order, with
+    no points of their own."""
+    pt = np.asarray(pt_idx, np.int64)
+    if pt.size and np.any(np.diff(pt) < 0):
+        raise ValueError("build_point_runs: observations not sorted by point")
+    counts = np.bincount(pt, minlength=n_pts).tolist()
+    runs, pieces, split = [], [], []
+    obs0 = pt0 = cnt = o = 0
+    n_pieces = 0
+    for p, c in enumerate(counts):
+        if c > RUN:
+            if p > pt0:
+                runs.append((obs0, cnt, pt0, p - pt0, -1))
+            mine = []
+            for s in range(0, c, RUN):
+                runs.append((o + s, min(RUN, c - s), p, 0, n_pieces))
+                mine.append(n_pieces)
+                n_pieces += 1
+            pieces.append(mine)
+            split.append(p)
+            obs0, cnt, pt0 = o + c, 0, p + 1
+        elif cnt + c > RUN or p - pt0 == RUN:
+            runs.append((obs0, cnt, pt0, p - pt0, -1))
+            obs0, cnt, pt0 = o, c, p
+        else:
+            cnt += c
+        o += c
+    if n_pts > pt0:
+        runs.append((obs0, cnt, pt0, n_pts - pt0, -1))
+    return np.asarray(runs, np.int64).reshape(-1, 5), pieces, split
+
+
+def build_stream_tables(cam_idx, pt_idx, n_cams: int, n_pts: int,
                         device="cpu") -> StreamTables:
-    """Host-side tables of the camera-sorted walk: each camera's
-    observations (in their stream order) cut into runs of at most CHUNK."""
+    """Host-side tables of both walks, built once per problem: each camera's
+    observations (in their stream order) cut into runs of at most CHUNK, and
+    the point runs of build_point_runs."""
     cam = np.asarray(cam_idx, np.int64)
+    pt = np.asarray(pt_idx, np.int64)
     perm = np.argsort(cam, kind="stable")
     counts = np.bincount(cam, minlength=n_cams)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
@@ -75,11 +132,24 @@ def build_stream_tables(cam_idx, pt_idx, n_cams: int,
         rows.append(np.stack([np.full_like(k, c), first, cnt, k], axis=1))
     chunks = (np.concatenate(rows) if rows
               else np.zeros((0, 4), np.int64)).astype(np.int32)
+    if np.all(np.diff(pt) >= 0):
+        runs, pieces, split = build_point_runs(pt, n_pts)
+    else:   # no point pass: the CUDA wrapper refuses its flags
+        runs, pieces, split = np.zeros((0, 5), np.int64), [], []
+    width = max((len(q) for q in pieces), default=0)
+    n_pieces = sum(len(q) for q in pieces)
+    split_piece = np.full((len(pieces), width), n_pieces, np.int64)
+    for r, q in enumerate(pieces):
+        split_piece[r, :len(q)] = q
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                     dtype=torch.int32, device=device)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     return StreamTables(
-        perm=i32(perm), pt_of=i32(np.asarray(pt_idx)[perm]),
+        perm=i32(perm), pt_of=i32(pt[perm]),
         chunks=i32(chunks), max_chunks=max(int(n_per.max(initial=0)), 1),
+        cam32=i32(cam), pt32=i32(pt), runs=i32(runs),
+        split_pt=i64(split), split_piece=i64(split_piece),
+        n_pieces=n_pieces, n_pts=n_pts,
     )
 
 
@@ -140,13 +210,13 @@ def linearize_stream_plain(K, q0, cams, pts, obs, cam_idx, pt_idx, valid,
 def _kernel():
     lib = _build.library("linearize_stream")
     if (lib.psba_linearize_stream_chunk() != CHUNK
-            or lib.psba_linearize_stream_pack() != PACK):
+            or lib.psba_linearize_stream_pack() != PACK
+            or lib.psba_linearize_stream_run() != RUN):
         raise RuntimeError("linearize_stream.cu constants differ from "
                            "psba_tpu_torch.ops.linearize_stream")
     fn = lib.psba_linearize_stream
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + (
-        [ctypes.c_void_p] * 7
-    )
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + (
+        [ctypes.c_void_p] * 3) + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
     return fn
 
@@ -157,9 +227,11 @@ def linearize_stream(K, q0, cams, pts, obs, cam_idx, pt_idx, valid, n_cams,
     """Observation-stream linearization; see the module docstring.
 
     CPU tensors run the plain version. CUDA tensors (float32, contiguous)
-    launch csrc/linearize_stream.cu, walking `tables` (required there),
-    and count one launch; the point sums of want_point are an index_add_
-    outside the kernel."""
+    launch csrc/linearize_stream.cu, walking `tables` (required there), and
+    count one launch: the camera pass, then the point pass when want_jac,
+    want_w or want_point asks for it (counted in `point_launches` too).
+    Points cut into pieces by the point runs get their V / gb as the sum
+    of the pieces, in order."""
     if obs.device.type == "cpu":
         return linearize_stream_plain(
             K, q0, cams, pts, obs, cam_idx, pt_idx, valid, n_cams, n_pts,
@@ -176,14 +248,21 @@ def linearize_stream(K, q0, cams, pts, obs, cam_idx, pt_idx, valid, n_cams,
     C, P = n_cams, n_pts
     if (K.shape != (C, 5) or q0.shape != (C, 4) or cams.shape != (C, 6)
             or pts.shape != (P, 3) or obs.shape != (O, 2)
-            or tables.perm.shape != (O,) or tables.pt_of.shape != (O,)
+            or tables.perm.shape != (O,) or tables.cam32.shape != (O,)
+            or tables.n_pts != P
             or (valid is not None and valid.shape != (O,))):
         raise ValueError("linearize_stream: inconsistent shapes")
-    for name, t in (("perm", tables.perm), ("pt_of", tables.pt_of),
-                    ("chunks", tables.chunks)):
+    if obs.data_ptr() % 8:
+        raise ValueError("linearize_stream: obs must be 8-byte aligned")
+    for name in ("perm", "pt_of", "chunks", "cam32", "pt32", "runs"):
+        t = getattr(tables, name)
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"linearize_stream: tables.{name} must be a "
                              f"contiguous int32 tensor on {dev}")
+    points = want_jac or want_w or want_point
+    if points and tables.runs.shape[0] == 0:
+        raise ValueError("linearize_stream: the point pass needs "
+                         "observations sorted by point")
     fn = _kernel()
     f32 = dict(dtype=torch.float32, device=dev)
     kq = torch.cat([K, q0], dim=1).contiguous()
@@ -191,28 +270,36 @@ def linearize_stream(K, q0, cams, pts, obs, cam_idx, pt_idx, valid, n_cams,
     A = torch.empty((O, 2, 6), **f32) if want_jac else None
     B = torch.empty((O, 2, 3), **f32) if want_jac else None
     W = torch.empty((O, 6, 3), **f32) if want_w else None
-    pk = torch.empty((O, 12), **f32) if want_point else None
+    red = torch.empty((P, 12), **f32) if want_point else None
+    pieces = None
+    if want_point and tables.n_pieces:
+        pieces = torch.zeros((tables.n_pieces + 1, 12), **f32)
     part = torch.zeros((C, tables.max_chunks, PACK), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), obs.data_ptr(),
         ptr(valid), tables.perm.data_ptr(), tables.pt_of.data_ptr(),
         tables.chunks.data_ptr(), tables.chunks.shape[0], tables.max_chunks,
-        int(bool(clamp)), ex.data_ptr(), ptr(A), ptr(B), ptr(W), ptr(pk),
+        tables.cam32.data_ptr(), tables.pt32.data_ptr(),
+        tables.runs.data_ptr(), tables.runs.shape[0], int(bool(clamp)),
+        ex.data_ptr(), ptr(A), ptr(B), ptr(W), ptr(red), ptr(pieces),
         part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "linearize_stream")
     linearize_stream.launches += 1
+    linearize_stream.point_launches += int(points)
     U, ga, l2 = _unpack(part.sum(1), C)
     V = gb = None
     if want_point:
-        red = torch.zeros((P, 12), **f32)
-        red.index_add_(0, pt_idx, pk)
+        if pieces is not None:
+            red[tables.split_pt] = pieces[tables.split_piece].sum(1)
         V, gb = red[:, :9].reshape(P, 3, 3), red[:, 9:]
     return ex, l2, U, V, W, ga, gb, A, B
 
 
 linearize_stream.launches = 0
+# calls that also ran the point pass (want_jac, want_w or want_point)
+linearize_stream.point_launches = 0
 
 
 def residual_l2_plain(K, q0, cams, pts, obs, cam_idx, pt_idx, valid=None,

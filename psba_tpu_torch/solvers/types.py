@@ -126,10 +126,11 @@ class ProblemArrays:
     cam_idx: torch.Tensor   # [O] int64
     pt_idx: torch.Tensor    # [O] int64
     # int32 copies of the two index streams, read by the residual_l2 kernel
+    # (the same tensors as stream.cam32 / stream.pt32)
     cam_idx32: torch.Tensor
     pt_idx32: torch.Tensor
-    # camera-sorted walk of the observation stream (ops.linearize_stream),
-    # built once here
+    # the camera-sorted and point-sorted walks of the observation stream
+    # (ops.linearize_stream), built once here
     stream: StreamTables
     # dense encoding
     obs_du: torch.Tensor | None = None   # [C, P] measurements (u), 0 unseen
@@ -169,13 +170,12 @@ class ProblemArrays:
             prob = prob.with_pairs()
             enc = dict(pair_o1=i(prob.pair_o1), pair_o2=i(prob.pair_o2),
                        pair_bucket=i(prob.pair_bucket))
+        stream = build_stream_tables(prob.cam_idx, prob.pt_idx, prob.n_cams,
+                                     prob.n_pts, device=device)
         return ProblemArrays(
             K=f(prob.K), q0=f(prob.q0), obs=f(prob.obs),
             cam_idx=i(prob.cam_idx), pt_idx=i(prob.pt_idx),
-            cam_idx32=i(prob.cam_idx, torch.int32),
-            pt_idx32=i(prob.pt_idx, torch.int32),
-            stream=build_stream_tables(prob.cam_idx, prob.pt_idx,
-                                       prob.n_cams, device=device),
+            cam_idx32=stream.cam32, pt_idx32=stream.pt32, stream=stream,
             **enc,
         )
 

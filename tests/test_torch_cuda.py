@@ -87,7 +87,8 @@ def test_gain_dense_kernel_matches_plain(cuda):
     assert _rel(l2, l2_p) < 1e-4
 
 
-@pytest.mark.parametrize("n", [6, 126, 130, 828, 1024])
+@pytest.mark.parametrize("n", [1, 6, 31, 32, 33, 126, 127, 128, 129, 130,
+                               500, 828, 1023, 1024])
 def test_spd_solve_kernel_matches_plain(cuda, n):
     from psba_tpu_torch.ops import cholesky as chol
 
@@ -113,6 +114,67 @@ def test_spd_solve_kernel_flags_indefinite(cuda):
     S[77, 77] = float("nan")
     x, ok = chol.spd_solve(S, torch.ones(200, device=cuda))
     assert not bool(ok) and bool((x == 0).all())
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("bad", [-1.0, float("nan")])
+def test_spd_solve_kernel_flags_bad_pivot_in_any_panel(cuda, where, bad):
+    """A pivot that is <= 0 or NaN in the first, a middle or the last
+    32-column panel clears ok and zeroes x (n = 828: 26 panels, the last
+    one 28 wide)."""
+    from psba_tpu_torch.ops import cholesky as chol
+
+    n = 828
+    i = dict(first=3, middle=13 * 32 + 7, last=n - 2)[where]
+    rng = np.random.default_rng(i)
+    A = rng.standard_normal((n, n))
+    S = A @ A.T + n * np.eye(n)
+    S[i, i] = bad
+    S = torch.as_tensor(S, dtype=torch.float32, device=cuda)
+    x, ok = chol.spd_solve(S, torch.ones(n, device=cuda))
+    assert ok.shape == () and ok.dtype == torch.bool
+    assert not bool(ok) and bool((x == 0).all())
+
+
+@pytest.mark.parametrize("n", [126, 828])
+def test_spd_solve_kernel_any_cluster_size(cuda, n):
+    """Every cluster size the device schedules gives the same solution
+    within the float32 tolerance."""
+    from psba_tpu_torch.ops import cholesky as chol
+
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n))
+    S = torch.as_tensor(A @ A.T + n * np.eye(n), dtype=torch.float32,
+                        device=cuda)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=cuda)
+    x_p, _ = chol.spd_solve_plain(S, b)
+    max_cluster = chol.max_cluster()
+    cs = 1
+    while cs <= max_cluster:
+        x, ok = chol._launch(S, b, cs)
+        assert bool(ok) and _rel(x, x_p) < 5e-5, cs
+        cs *= 2
+
+
+@pytest.mark.parametrize("width", [36, 6, 3])
+def test_indexed_sum_on_cuda_is_fixed_order(cuda, width):
+    """The bucket sum on the card: within float32 rounding of the CPU's,
+    out-of-range buckets dropped, and the same bits on two calls (widths of
+    S's 6x6 blocks, ea and eb; many terms per bucket)."""
+    from psba_tpu_torch.ops.reduce import indexed_sum
+
+    rng = np.random.default_rng(width)
+    n_seg, n = 50, 200_000
+    idx = rng.integers(-1, n_seg + 2, n)
+    data = rng.standard_normal((n, width)).astype(np.float32)
+    ref = indexed_sum(torch.as_tensor(data), torch.as_tensor(idx), n_seg)
+    d, i = torch.as_tensor(data, device=cuda), torch.as_tensor(idx,
+                                                               device=cuda)
+    got = indexed_sum(d, i, n_seg)
+    assert got.shape == (n_seg, width)
+    assert _rel(got.cpu(), ref) < 1e-5
+    assert bool((indexed_sum(d, i, n_seg) == got).all())
 
 
 def test_wrappers_refuse_float64_on_cuda(cuda):
@@ -171,6 +233,71 @@ def test_linearize_stream_kernel_matches_plain(cuda, flags):
             assert _rel(a, b) < tols[name], name
     if flags == "tr":
         assert out[3] is None and out[4] is None and out[7] is None
+
+
+def _long_point_stream(cuda):
+    """The 13-camera problem with point 5's observations repeated (with
+    noise) to 2 RUN + 41 of them, so the point pass cuts it into three
+    pieces; re-sorted by point. Returns the linearize_stream arguments on
+    `cuda` and the stream tables."""
+    from psba_tpu_torch.io import synthetic_problem
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    prob = synthetic_problem(n_cams=13, n_pts=700, seed=5)
+    rng = np.random.default_rng(5)
+    mine = np.nonzero(prob.pt_idx == 5)[0]
+    extra = rng.choice(mine, 2 * ls.RUN + 41 - len(mine))
+    cam = np.concatenate([prob.cam_idx, prob.cam_idx[extra]])
+    pt = np.concatenate([prob.pt_idx, prob.pt_idx[extra]])
+    obs = np.concatenate([prob.obs, prob.obs[extra]
+                          + rng.standard_normal((len(extra), 2))])
+    order = np.argsort(pt, kind="stable")
+    cam, pt, obs = cam[order], pt[order], obs[order]
+    tables = ls.build_stream_tables(cam, pt, prob.n_cams, prob.n_pts,
+                                    device=cuda)
+    assert tables.n_pieces == 3
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    cams = prob.cams + np.concatenate(
+        [1e-3 * rng.standard_normal((prob.n_cams, 3)),
+         1e-2 * rng.standard_normal((prob.n_cams, 3))], axis=1)
+    args = (f(prob.K), f(prob.q0), f(cams), f(prob.pts), f(obs),
+            torch.as_tensor(cam, device=cuda), torch.as_tensor(pt, device=cuda))
+    return args, prob.n_cams, prob.n_pts, tables
+
+
+@pytest.mark.parametrize("flags", ["pairs_lm", "pairs_tr"])
+def test_linearize_stream_long_point_matches_plain(cuda, flags):
+    """The pair path's flags on a problem with a point longer than one run
+    of the point pass, against the plain version at the tolerances of
+    test_linearize_stream_kernel_matches_plain, with a mask."""
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    args, C, P, tables = _long_point_stream(cuda)
+    O = args[4].shape[0]
+    valid = (torch.arange(O, device=cuda) < O - 7).to(torch.float32)
+    kw = dict(want_jac=flags == "pairs_tr")
+    out = ls.linearize_stream(*args, valid, C, P, tables=tables, **kw)
+    ref = ls.linearize_stream_plain(*args, valid, C, P, **kw)
+    names = ("ex", "l2", "U", "V", "W", "ga", "gb", "A", "B")
+    tols = dict(ex=1e-4, l2=1e-4, U=1e-4, V=1e-4, W=1e-5, ga=1e-3, gb=1e-3,
+                A=1e-5, B=1e-5)
+    for name, a, b in zip(names, out, ref):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert _rel(a, b) < tols[name], name
+    assert (out[7] is None) == (flags == "pairs_lm")
+
+
+def test_linearize_stream_sums_are_deterministic(cuda):
+    """Two calls give bit-identical V, gb, U and ga: no sum depends on the
+    order in which blocks run."""
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    args, C, P, tables = _long_point_stream(cuda)
+    one = ls.linearize_stream(*args, None, C, P, tables=tables, want_jac=True)
+    two = ls.linearize_stream(*args, None, C, P, tables=tables, want_jac=True)
+    for i in (2, 3, 5, 6):   # U, V, ga, gb
+        assert bool((one[i] == two[i]).all()), i
 
 
 @pytest.mark.parametrize("n", [1, 2, 3])

@@ -222,7 +222,7 @@ def test_linearize_stream_matches_pallas(prob_synth, flags):
         jnp.asarray(p.pt_idx), None if valid is None else jnp.asarray(valid),
         p.n_cams, p.n_pts, **kw)
     t = lambda a: torch.from_numpy(np.asarray(a))
-    tables = tls.build_stream_tables(p.cam_idx, p.pt_idx, p.n_cams)
+    tables = tls.build_stream_tables(p.cam_idx, p.pt_idx, p.n_cams, p.n_pts)
     got = tls.linearize_stream(
         t(p.K.astype(f32)), t(p.q0.astype(f32)), t(cams), t(pts), t(obs),
         t(p.cam_idx).long(), t(p.pt_idx).long(),
@@ -252,7 +252,7 @@ def test_stream_tables_walk_every_observation(prob_mini_bal):
     one camera's run of at most CHUNK, and the slots of a camera are
     0..n-1 (so the partial sums have a fixed order)."""
     p = prob_mini_bal
-    st = tls.build_stream_tables(p.cam_idx, p.pt_idx, p.n_cams)
+    st = tls.build_stream_tables(p.cam_idx, p.pt_idx, p.n_cams, p.n_pts)
     perm, chunks = st.perm.numpy(), st.chunks.numpy()
     np.testing.assert_array_equal(np.sort(perm), np.arange(p.n_obs))
     np.testing.assert_array_equal(st.pt_of.numpy(), p.pt_idx[perm])
@@ -264,7 +264,8 @@ def test_stream_tables_walk_every_observation(prob_mini_bal):
         assert slot < st.max_chunks
     # a camera with more observations than one block takes several slots
     small = tls.build_stream_tables(np.repeat([0, 1], [5, 2 * tls.CHUNK + 1]),
-                                    np.arange(2 * tls.CHUNK + 6), 2)
+                                    np.arange(2 * tls.CHUNK + 6), 2,
+                                    2 * tls.CHUNK + 6)
     assert small.max_chunks == 3
     np.testing.assert_array_equal(small.chunks.numpy()[:, 3], [0, 0, 1, 2])
 
