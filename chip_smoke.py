@@ -23,8 +23,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      Ladybug-138: n = 126 / 828 reduced systems and n = 1024, the largest
      the kernel takes, each at every cluster size the card schedules, the
      observation stream with the TR flags and with every flag, the J-gram
-     at n = 1, 2, 3), with the tolerance stated, CUDA-event times (median
-     after warm-up), each kernel's device time from the profiler, its bound
+     at n = 1, 2, 3, the dense linearization with and without U), with the
+     tolerance stated, CUDA-event times (median after warm-up), each
+     kernel's device time from the profiler (for linearize_dense and
+     gain_dense also their launches and torch ops per call, and two calls
+     checked bit-identical), its bound
      (the larger of bytes over HBM bandwidth and flops over the float32
      rate) and, where one PyTorch call computes the same function, that
      call's time;
@@ -72,6 +75,7 @@ CELL_LINEARIZE_FLOPS = 300
 CELL_RESIDUAL_FLOPS = 86
 # the dense grid: W = A^T B (54), V (24), gb (12), U (84), ga (24)
 LINEARIZE_DENSE_FLOPS = CELL_LINEARIZE_FLOPS + 198
+LINEARIZE_DENSE_U_FLOPS = 84 + 24
 # two residuals and the factored gain / new_l2 sums
 GAIN_DENSE_FLOPS = 2 * CELL_RESIDUAL_FLOPS + 8
 # the stream with the TR flags: mask (20), U (84), ga (24), l2 (4)
@@ -128,6 +132,79 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 10) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def call_profile(fn, reps: int = 10) -> dict:
+    """What one call of fn does on the card, from torch.profiler over `reps`
+    calls after a warm-up: its device launches (kernels, copies, fills) per
+    call by name, and the torch ops it runs per call."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels, ops = {}, {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            name = re.search(r"(\w+)\(", e.key)
+            kernels[name.group(1) if name else e.key] = e.count / reps
+        elif e.key.startswith("aten::"):
+            ops[e.key] = e.count / reps
+    return dict(launches_per_call=sum(kernels.values()), kernels=kernels,
+                torch_ops=ops)
+
+
+def clean_l2_kernel_ms(fn, kernels, reps: int = 10) -> dict:
+    """Device ms per call of each named kernel of fn, median over `reps`
+    calls, each after a read of 256 MB that leaves the 50 MB L2 holding no
+    dirty line of an earlier kernel: the call's own traffic only."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.sum()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    times = {k: [] for k in kernels}
+    for e in prof.events():
+        for k in kernels:
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and f"::{k}(" in e.name):
+                times[k].append(e.self_device_time_total / 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Median host milliseconds of one call of fn (the card idle when it
+    starts): the wrapper's own work, launches included, not the device's."""
+    import statistics
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -374,35 +451,85 @@ def main(argv) -> int:
     cam_bytes = 4 * 15 * C          # K | q0 | cams
 
     args = (pa.K, pa.q0, cams, pts, *tables)
-    out_k = ld.linearize_dense(*args, want_u=True)
-    out_p = ld.linearize_dense_plain(*args, want_u=True)
-    torch.cuda.synchronize()
     # per-cell products (ZW) and sums over >= 10^4 f32 terms in another
     # order (V, U: 1e-4); B^T ex and A^T ex add residual-weighted terms of
-    # both signs, so they carry the reference's cancellation gate (1e-3)
-    errs = []
-    for name, i, tol in (("ZW0", 0, 1e-5), ("ZW1", 1, 1e-5),
-                         ("ZW2", 2, 1e-5), ("Vp", 3, 1e-4),
-                         ("gbp", 4, 1e-3), ("U", 6, 1e-4), ("ga", 7, 1e-3)):
-        errs.append(compare(f"linearize_dense {name}", out_k[i], out_p[i],
-                            tol))
-    need(out_k[5] == out_p[5], "padded widths differ")
-    need(bool((out_k[0][:, P:] == 0).all()) and bool(
-        (out_k[3][:, :, P:] == torch.eye(3, device=dev)[:, :, None]).all()),
-        "padded lanes are not ZW = 0 / V = I")
-    del out_p
+    # both signs, so they carry the reference's cancellation gate (1e-3).
+    # With U (the LM loop) and without (the TR loop); the calls pass the
+    # solver's cached K | q0 rows, as the solver does
+    lin_checks = (("ZW0", 0, 1e-5), ("ZW1", 1, 1e-5), ("ZW2", 2, 1e-5),
+                  ("Vp", 3, 1e-4), ("gbp", 4, 1e-3), ("U", 6, 1e-4),
+                  ("ga", 7, 1e-3))
+    errs, lin = [], {}
+    lin_kernels = ("linearize_dense_kernel", "linearize_dense_finish_kernel")
+    for want_u in (True, False):
+        tag = "U" if want_u else "no U"
+        out_k = ld.linearize_dense(*args, want_u=want_u, kq=pa.kq)
+        again = ld.linearize_dense(*args, want_u=want_u, kq=pa.kq)
+        out_p = ld.linearize_dense_plain(*args, want_u=want_u)
+        torch.cuda.synchronize()
+        need(len(out_k) == len(out_p) == (8 if want_u else 6),
+             f"linearize_dense[{tag}]: {len(out_k)} outputs")
+        for name, i, tol in lin_checks[:7 if want_u else 5]:
+            errs.append(compare(f"linearize_dense[{tag}] {name}", out_k[i],
+                                out_p[i], tol))
+            need(bool((again[i] == out_k[i]).all()),
+                 f"linearize_dense[{tag}]: {name} differs between two calls")
+        need(out_k[5] == out_p[5] == Pp, "padded widths differ")
+        need(all(bool((out_k[i][:, P:] == 0).all()) for i in (0, 1, 2, 4))
+             and bool((out_k[3][:, :, P:]
+                       == torch.eye(3, device=dev)[:, :, None]).all()),
+             f"linearize_dense[{tag}]: padded lanes are not ZW = gb = 0, "
+             "V = I")
+        if want_u:
+            need(bool((out_k[6] == out_k[6].transpose(1, 2)).all()),
+                 "linearize_dense: U is not symmetric")
+        del out_k, again, out_p
+        call = (lambda want_u=want_u: ld.linearize_dense(
+            *args, want_u=want_u, kq=pa.kq))
+        parts = clean_l2_kernel_ms(call, lin_kernels)
+        lin[tag] = dict(ms=cuda_ms(call), host_ms=host_ms(call),
+                        kernel_ms_clean_l2=sum(parts.values()),
+                        kernel_ms_clean_l2_parts=parts, **call_profile(call))
+        # reads the three [C, P] tables; writes ZW [3, 6C, Pp], V, gb (and
+        # U, ga)
+        lin[tag]["bound"] = bound(
+            cam_bytes + 12 * P + 12 * C * P
+            + 4 * (18 * C * Pp + 12 * Pp + (42 * C if want_u else 0)),
+            (LINEARIZE_DENSE_FLOPS if want_u
+             else LINEARIZE_DENSE_FLOPS - LINEARIZE_DENSE_U_FLOPS) * O)
+        print(f"  linearize_dense[{tag}]: wrapper {lin[tag]['ms']:.4f} ms "
+              f"(host {lin[tag]['host_ms']:.4f} ms), kernels with L2 clean "
+              f"{lin[tag]['kernel_ms_clean_l2']:.4f} ms {parts}, bound "
+              f"{lin[tag]['bound']['bound_ms']:.4f} ms; per call "
+              f"{lin[tag]['launches_per_call']} launches "
+              f"{lin[tag]['kernels']}, torch ops {lin[tag]['torch_ops']}; "
+              "two calls bit-identical", flush=True)
+        # its torch ops: one allocation and the views that cut it into the
+        # outputs, none of which launches device work
+        need(lin[tag]["launches_per_call"] <= 2
+             and set(lin[tag]["torch_ops"]) <= {"aten::empty",
+                                                "aten::as_strided"},
+             f"linearize_dense[{tag}]: more than two launches or a torch op "
+             "beyond the allocation of its outputs")
     rows["linearize_dense"] = dict(
         max_abs_err=max(e for e, _ in errs),
         max_rel_err=max(r for _, r in errs),
-        ms=cuda_ms(lambda: ld.linearize_dense(*args, want_u=True)),
+        ms=lin["U"]["ms"], host_ms=lin["U"]["host_ms"],
+        kernel_ms_clean_l2=lin["U"]["kernel_ms_clean_l2"],
+        kernel_ms_clean_l2_parts=lin["U"]["kernel_ms_clean_l2_parts"],
+        launches_per_call=lin["U"]["launches_per_call"],
+        torch_ops_per_call=lin["U"]["torch_ops"],
+        ms_no_u=lin["no U"]["ms"], host_ms_no_u=lin["no U"]["host_ms"],
+        kernel_ms_clean_l2_no_u=lin["no U"]["kernel_ms_clean_l2"],
+        kernel_ms_clean_l2_parts_no_u=(
+            lin["no U"]["kernel_ms_clean_l2_parts"]),
+        launches_per_call_no_u=lin["no U"]["launches_per_call"],
+        bound_ms_no_u=lin["no U"]["bound"]["bound_ms"],
         plain_ms=cuda_ms(lambda: ld.linearize_dense_plain(*args,
                                                           want_u=True),
                          warmup=1, runs=5),
         library_ms=None,
-        # reads the three [C, P] tables; writes ZW [3, 6C, Pp], V, gb, U, ga
-        **bound(cam_bytes + 12 * P + 12 * C * P
-                + 4 * (18 * C * Pp + 12 * Pp + 42 * C),
-                LINEARIZE_DENSE_FLOPS * O),
+        **lin["U"]["bound"],
     )
 
     new_cams = cams + torch.as_tensor(
@@ -410,20 +537,36 @@ def main(argv) -> int:
     new_pts = pts + torch.as_tensor(
         1e-3 * rng.standard_normal(pts.shape), dtype=f32, device=dev)
     gargs = (pa.K, pa.q0, cams, pts, new_cams, new_pts, *tables)
-    g_k = torch.stack(rd.gain_dense(*gargs))
+    g_k = torch.stack(rd.gain_dense(*gargs, kq=pa.kq))
+    g_again = torch.stack(rd.gain_dense(*gargs, kq=pa.kq))
     g_p = torch.stack(rd.gain_dense_plain(*gargs))
     # two sums over 2.5M cells in another order; gain is a difference of
     # nearly equal sums, so 1e-3; new_l2 1e-4
     e1 = compare("gain_dense gain", g_k[0], g_p[0], 1e-3)
     e2 = compare("gain_dense new_l2", g_k[1], g_p[1], 1e-4)
+    need(bool((g_again == g_k).all()),
+         "gain_dense: two calls give different bits")
+    gcall = lambda: rd.gain_dense(*gargs, kq=pa.kq)
+    gprof = call_profile(gcall)
+    g_clean = clean_l2_kernel_ms(gcall, ("gain_dense_kernel",))
     rows["gain_dense"] = dict(
         max_abs_err=max(e1[0], e2[0]), max_rel_err=max(e1[1], e2[1]),
-        ms=cuda_ms(lambda: rd.gain_dense(*gargs)),
+        ms=cuda_ms(gcall), host_ms=host_ms(gcall),
+        kernel_ms_clean_l2=g_clean["gain_dense_kernel"],
+        launches_per_call=gprof["launches_per_call"],
+        torch_ops_per_call=gprof["torch_ops"],
         plain_ms=cuda_ms(lambda: rd.gain_dense_plain(*gargs), runs=5),
         library_ms=None,
         **bound(cam_bytes + 4 * 6 * C + 24 * P + 12 * C * P + 8,
                 GAIN_DENSE_FLOPS * O),
     )
+    print(f"  gain_dense: wrapper {rows['gain_dense']['ms']:.4f} ms (host "
+          f"{rows['gain_dense']['host_ms']:.4f} ms), kernel with L2 clean "
+          f"{g_clean['gain_dense_kernel']:.4f} ms; per call "
+          f"{gprof['launches_per_call']} launch {gprof['kernels']}, torch "
+          f"ops {gprof['torch_ops']}; two calls bit-identical", flush=True)
+    need(gprof["launches_per_call"] == 1,
+         "gain_dense: not one launch per call")
 
     chol_errs, chol_ms, chol_plain_ms, chol_lib_ms = [], {}, {}, {}
     chol_by_cluster = {}
@@ -568,13 +711,14 @@ def main(argv) -> int:
     )
 
     # device time of each kernel alone (the wrapper's time above includes
-    # its torch epilogue and launch gaps): profiler, mean of 10 calls
+    # its host work before the launch): profiler, mean of 10 calls in turns
+    # with the others; linearize_dense's is its two kernels together
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            ld.linearize_dense(*args, want_u=True)
-            rd.gain_dense(*gargs)
+            ld.linearize_dense(*args, want_u=True, kq=pa.kq)
+            rd.gain_dense(*gargs, kq=pa.kq)
             chol.spd_solve(S828, b828)
             ls.linearize_stream(*sargs, None, C, P, tables=pa.stream,
                                 **tr_flags)
@@ -585,6 +729,15 @@ def main(argv) -> int:
         for k in rows:
             if f"(anonymous namespace)::{k}_kernel" in e.key:
                 rows[k]["kernel_ms"] = e.self_device_time_total / 1e3 / e.count
+        if "(anonymous namespace)::linearize_dense_finish_kernel" in e.key:
+            rows["linearize_dense"]["finish_kernel_ms"] = (
+                e.self_device_time_total / 1e3 / e.count)
+    need("finish_kernel_ms" in rows["linearize_dense"],
+         "linearize_dense: the finishing kernel not seen by the profiler")
+    rows["linearize_dense"]["grid_kernel_ms"] = (
+        rows["linearize_dense"]["kernel_ms"])
+    rows["linearize_dense"]["kernel_ms"] += (
+        rows["linearize_dense"]["finish_kernel_ms"])
     # the pair flags run the camera pass and the point pass: their device
     # times, each a mean over 10 calls, and their sum
     for label, call in pair_calls.items():
@@ -619,7 +772,7 @@ def main(argv) -> int:
               f"{v['kernel_ms']:.4f} ms), plain {v['plain_ms']:.4f} ms, "
               f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), library "
               f"{lib}", flush=True)
-    del out_k, pa, gram, j2, rargs
+    del pa, gram, j2, rargs
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main paths

@@ -8,12 +8,15 @@ device and dtype:
   io/        SBA text, BAL and synthetic problem readers (numpy)
   utils/     phase timing and checkpointing
   models/    quaternion and pinhole camera models
-  core/      residual, analytic Jacobian and jmultiply, dense3 Schur
-             reduction, SPD solve, the GMW modified Cholesky
+  core/      residual, analytic Jacobian and jmultiply, the Schur reduction
+             in both encodings (dense3 on the [C, P] grid, and the
+             covisibility pairs above the dense cap), SPD solve, the GMW
+             modified Cholesky
   ops/       hand-written Hopper kernels (csrc/*.cu, built at first use by
              ops/_build.py), each beside its plain PyTorch version
-  solvers/   SolverConfig / ProblemArrays / OptState, the dense3 LM and TR
-             loops and the hybrid `solve` controller
+  solvers/   SolverConfig / ProblemArrays / OptState, the LM and TR loops
+             on either encoding, and the hybrid `solve` controller, whose
+             schur="auto" picks the encoding
   convert    carry problem and state tensors across from psba_tpu
 
 `solve` runs on the CUDA device unless the caller passes device="cpu". This

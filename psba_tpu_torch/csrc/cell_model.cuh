@@ -1,5 +1,5 @@
 // Forward model and analytic Jacobian of one (camera, point) cell, shared by
-// the dense-grid kernels linearize_dense.cu and gain_dense.cu.
+// the port's kernels (the dense grid and the observation stream).
 //
 // Same arithmetic as _cell_model in psba_tpu/ops/linearize_dense.py (and
 // _cell_residual in psba_tpu/ops/residual_dense.py): the point X is rotated
@@ -17,16 +17,25 @@ struct CellForward {
   float s, X01, X02, X03, w1, w2, w3, p1, p2, p3, iz;
 };
 
-__device__ __forceinline__ CellForward cell_forward(const float* cam, float x1,
-                                                    float x2, float x3,
-                                                    float vmask, bool clamp) {
+// s = sqrt(1 - |v|^2), the scalar part of the local rotation: it depends on
+// the camera alone, so a kernel may compute it once per camera record.
+__device__ __forceinline__ float camera_s(const float* cam, bool clamp) {
+  const float v1 = cam[9], v2 = cam[10], v3 = cam[11];
+  float s2 = 1.0f - v1 * v1 - v2 * v2 - v3 * v3;
+  if (clamp) s2 = fmaxf(s2, 0.0f);
+  return sqrtf(s2);
+}
+
+// cell_forward with the camera's s = camera_s(cam, clamp) given.
+__device__ __forceinline__ CellForward cell_forward_s(const float* cam,
+                                                      float s, float x1,
+                                                      float x2, float x3,
+                                                      float vmask) {
   const float a = cam[5], b = cam[6], cc = cam[7], d = cam[8];
   const float v1 = cam[9], v2 = cam[10], v3 = cam[11];
   const float t1 = cam[12], t2 = cam[13], t3 = cam[14];
   CellForward f;
-  float s2 = 1.0f - v1 * v1 - v2 * v2 - v3 * v3;
-  if (clamp) s2 = fmaxf(s2, 0.0f);
-  f.s = sqrtf(s2);
+  f.s = s;
   // X0 = R(q0) X
   const float t01 = 2.0f * (cc * x3 - d * x2);
   const float t02 = 2.0f * (d * x1 - b * x3);
@@ -46,18 +55,34 @@ __device__ __forceinline__ CellForward cell_forward(const float* cam, float x1,
   return f;
 }
 
+__device__ __forceinline__ CellForward cell_forward(const float* cam, float x1,
+                                                    float x2, float x3,
+                                                    float vmask, bool clamp) {
+  return cell_forward_s(cam, camera_s(cam, clamp), x1, x2, x3, vmask);
+}
+
+// Masked residual obs - prediction of one cell, the camera's s given.
+__device__ __forceinline__ void cell_residual_s(const float* cam, float s,
+                                                float x1, float x2, float x3,
+                                                float obsu, float obsv,
+                                                float vmask, float& exu,
+                                                float& exv) {
+  const float fu = cam[0], u0 = cam[1], v0 = cam[2], ar = cam[3], sk = cam[4];
+  const CellForward f = cell_forward_s(cam, s, x1, x2, x3, vmask);
+  const float pu = (fu * f.p1 + sk * f.p2 + u0 * f.p3) * f.iz;
+  const float pv = (fu * ar * f.p2 + v0 * f.p3) * f.iz;
+  exu = (obsu - pu) * vmask;
+  exv = (obsv - pv) * vmask;
+}
+
 // Masked residual obs - prediction of one cell.
 __device__ __forceinline__ void cell_residual(const float* cam, float x1,
                                               float x2, float x3, float obsu,
                                               float obsv, float vmask,
                                               bool clamp, float& exu,
                                               float& exv) {
-  const float fu = cam[0], u0 = cam[1], v0 = cam[2], ar = cam[3], sk = cam[4];
-  const CellForward f = cell_forward(cam, x1, x2, x3, vmask, clamp);
-  const float pu = (fu * f.p1 + sk * f.p2 + u0 * f.p3) * f.iz;
-  const float pv = (fu * ar * f.p2 + v0 * f.p3) * f.iz;
-  exu = (obsu - pu) * vmask;
-  exv = (obsv - pv) * vmask;
+  cell_residual_s(cam, camera_s(cam, clamp), x1, x2, x3, obsu, obsv, vmask,
+                  exu, exv);
 }
 
 // Residual plus the masked Jacobian rows A[r][0..5], B[r][0..2], r = u, v.

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -110,6 +111,29 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on the CUDA `device`, read
+    without building a torch.cuda.Stream object."""
+    index = torch.cuda.current_device() if device.index is None else (
+        device.index)
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_workspaces: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+
+def workspace(what: str, device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 tensor of at least n entries on `device`, kept for the
+    kernel `what` from call to call: the integer ticket by which its last
+    block finds itself, which the kernel leaves at zero, and its scratch.
+    Calls of one kernel share it, so they must run on one stream."""
+    ws = _workspaces.get((what, device))
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.int32, device=device)
+        _workspaces[what, device] = ws
+    return ws
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C launcher returned a CUDA error code."""
     if err != 0:
@@ -119,15 +143,35 @@ def check(err: int, what: str) -> None:
 def cuda_inputs(what: str, **tensors) -> torch.device:
     """Raise unless every tensor is a contiguous float32 tensor on one CUDA
     device; returns that device."""
-    devs = {t.device for t in tensors.values()}
-    if len(devs) != 1:
-        raise ValueError(f"{what}: tensors on several devices {devs}")
-    dev = devs.pop()
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: takes CPU or CUDA tensors, got {dev}")
+    dev = None
     for name, t in tensors.items():
+        if dev is None:
+            dev = t.device
+            if dev.type != "cuda":
+                raise ValueError(f"{what}: takes CPU or CUDA tensors, got "
+                                 f"{dev}")
+        elif t.device != dev:
+            devs = sorted({str(x.device) for x in tensors.values()})
+            raise ValueError(f"{what}: tensors on several devices {devs}")
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     return dev
+
+
+def carve(device: torch.device, *shapes) -> list[torch.Tensor]:
+    """Contiguous float32 tensors of the given shapes on `device`, cut from
+    one allocation: one torch.empty and a view each (on the card an
+    allocation costs several times a view in host time)."""
+    sizes = [math.prod(s) for s in shapes]
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=device)
+    out, off = [], 0
+    for shape, n in zip(shapes, sizes):
+        strides, step = [], 1
+        for d in reversed(shape):
+            strides.append(step)
+            step *= d
+        out.append(buf.as_strided(shape, strides[::-1], off))
+        off += n
+    return out

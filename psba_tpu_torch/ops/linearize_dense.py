@@ -24,6 +24,7 @@ also what the kernel is held against on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 from psba_tpu_torch.ops import _build
 
 # point tile = threads per block of the kernel; camera chunk = cameras per
-# block (both checked against the built library at launch)
+# block (both checked against the built library at its first use)
 PTILE = 128
 CAM_CHUNK = 8
 
@@ -201,6 +202,7 @@ def linearize_dense_plain(K, q0, cams, pts, obs_du, obs_dv, valid_d,
     return (*ZW, Vp, gbp, Pp, U.reshape(C, 6, 6), ga)
 
 
+@functools.cache
 def _kernel():
     lib = _build.library("linearize_dense")
     if (lib.psba_linearize_dense_ptile() != PTILE
@@ -209,59 +211,58 @@ def _kernel():
                            "psba_tpu_torch.ops.linearize_dense")
     fn = lib.psba_linearize_dense
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + (
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 9
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def linearize_dense(K, q0, cams, pts, obs_du, obs_dv, valid_d, clamp=False,
-                    want_u=False):
+                    want_u=False, kq=None):
     """Dense-grid linearization; see the module docstring for the outputs.
 
     CPU tensors run the plain version. CUDA tensors (float32, contiguous)
-    launch csrc/linearize_dense.cu and count one launch. Every cell is
-    visited: the reference's (camera, tile) skip is exact and not ported
-    yet."""
+    launch csrc/linearize_dense.cu (the grid kernel, then the kernel that
+    finishes the V / gb and U / ga sums) and count one call: the wrapper
+    only allocates the outputs (one buffer, cut into views).
+    `kq` is the [C, 9] camera rows K | q0 (ProblemArrays.kq), built here
+    when not given. Every cell is visited: the reference's (camera, tile)
+    skip is exact and not ported yet."""
     if valid_d.device.type == "cpu":
         return linearize_dense_plain(K, q0, cams, pts, obs_du, obs_dv,
                                      valid_d, clamp=clamp, want_u=want_u)
+    if kq is None:
+        kq = torch.cat([K, q0], dim=1)
     dev = _build.cuda_inputs(
-        "linearize_dense", K=K, q0=q0, cams=cams, pts=pts, obs_du=obs_du,
+        "linearize_dense", kq=kq, cams=cams, pts=pts, obs_du=obs_du,
         obs_dv=obs_dv, valid_d=valid_d,
     )
     C, P = valid_d.shape
-    if (K.shape != (C, 5) or q0.shape != (C, 4) or cams.shape != (C, 6)
-            or pts.shape != (P, 3) or obs_du.shape != (C, P)
-            or obs_dv.shape != (C, P)):
+    if (kq.shape != (C, 9) or cams.shape != (C, 6) or pts.shape != (P, 3)
+            or obs_du.shape != (C, P) or obs_dv.shape != (C, P)):
         raise ValueError("linearize_dense: inconsistent shapes")
     fn = _kernel()
     Pp = padded_points(P)
-    n_cg = -(-C // CAM_CHUNK)
-    kq = torch.cat([K, q0], dim=1).contiguous()
-    f32 = dict(dtype=torch.float32, device=dev)
-    zw = torch.empty((3, 6 * C, Pp), **f32)
-    vpart = torch.empty((n_cg, 9, Pp), **f32)
-    upart = torch.empty((Pp // PTILE, C, 27), **f32) if want_u else None
+    n_tiles, n_cg = Pp // PTILE, -(-C // CAM_CHUNK)
+    # the outputs and the kernels' scratch (the per-chunk V / gb and the
+    # per-tile U / ga partials) in one allocation
+    scratch = n_cg * 9 * Pp + (n_tiles * C * 27 if want_u else 0)
+    out = _build.carve(dev, *[(6 * C, Pp)] * 3, (3, 3, Pp), (3, Pp),
+                       *([(C, 6, 6), (C, 6)] if want_u else []), (scratch,))
+    U, ga = out[5:7] if want_u else (None, None)
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), obs_du.data_ptr(),
         obs_dv.data_ptr(), valid_d.data_ptr(), C, P, Pp, int(bool(clamp)),
-        zw.data_ptr(), vpart.data_ptr(),
-        None if upart is None else upart.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in out[:5]),
+        None if U is None else U.data_ptr(),
+        None if ga is None else ga.data_ptr(), out[-1].data_ptr(),
+        _build.stream(dev),
     )
     _build.check(err, "linearize_dense")
     linearize_dense.launches += 1
-    # the epilogue stays on the device: stacks of views, no index tensors
-    vs = vpart.sum(0)
-    Vp = torch.stack([vs[r] for r in _SYM3]).reshape(3, 3, Pp)
-    Vp[:, :, P:] = torch.eye(3, **f32)[:, :, None]
-    gbp = vs[6:9]
     if not want_u:
-        return zw[0], zw[1], zw[2], Vp, gbp, Pp
-    us = upart.sum(0)
-    U = torch.stack([us[:, r] for r in _SYM6.reshape(-1).tolist()], dim=1)
-    return zw[0], zw[1], zw[2], Vp, gbp, Pp, U.reshape(C, 6, 6), us[:, 21:]
+        return (*out[:5], Pp)
+    return (*out[:5], Pp, U, ga)
 
 
 linearize_dense.launches = 0

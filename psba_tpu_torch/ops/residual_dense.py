@@ -28,6 +28,7 @@ on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -58,53 +59,62 @@ def gain_dense_plain(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv,
     return gain, (enu * enu + env * env).sum()
 
 
+@functools.cache
 def _kernel():
+    """(the launcher, blocks the current device holds resident at once: the
+    kernel's largest grid)."""
     lib = _build.library("gain_dense")
     if (lib.psba_gain_dense_ptile() != PTILE
             or lib.psba_gain_dense_cam_chunk() != CAM_CHUNK):
         raise RuntimeError("gain_dense.cu tile constants differ from "
                            "psba_tpu_torch.ops.linearize_dense")
+    blocks = lib.psba_gain_dense_resident_blocks()
+    if blocks < 1:
+        raise RuntimeError("gain_dense: no block of the kernel fits the "
+                           "device")
     fn = lib.psba_gain_dense
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + (
-        [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + (
+        [ctypes.c_void_p] * 3
     )
     fn.restype = ctypes.c_int
-    return fn
+    return fn, blocks
 
 
 def gain_dense(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv, valid_d,
-               clamp=False):
+               clamp=False, kq=None):
     """Trial-step (gain, new_l2) on the dense grid, as 0-d tensors.
 
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
-    launch csrc/gain_dense.cu and count one launch."""
+    launch csrc/gain_dense.cu, which sums to the two scalars itself, and
+    count one launch. `kq` is the [C, 9] camera rows K | q0
+    (ProblemArrays.kq), built here when not given."""
     if valid_d.device.type == "cpu":
         return gain_dense_plain(K, q0, cams, pts, new_cams, new_pts, obs_du,
                                 obs_dv, valid_d, clamp=clamp)
+    if kq is None:
+        kq = torch.cat([K, q0], dim=1)
     dev = _build.cuda_inputs(
-        "gain_dense", K=K, q0=q0, cams=cams, pts=pts, new_cams=new_cams,
+        "gain_dense", kq=kq, cams=cams, pts=pts, new_cams=new_cams,
         new_pts=new_pts, obs_du=obs_du, obs_dv=obs_dv, valid_d=valid_d,
     )
     C, P = valid_d.shape
-    if (K.shape != (C, 5) or q0.shape != (C, 4) or cams.shape != (C, 6)
+    if (kq.shape != (C, 9) or cams.shape != (C, 6)
             or new_cams.shape != (C, 6) or pts.shape != (P, 3)
             or new_pts.shape != (P, 3) or obs_du.shape != (C, P)
             or obs_dv.shape != (C, P)):
         raise ValueError("gain_dense: inconsistent shapes")
-    fn = _kernel()
-    n_blocks = (-(-P // PTILE)) * (-(-C // CAM_CHUNK))
-    kq = torch.cat([K, q0], dim=1).contiguous()
-    part = torch.empty((n_blocks, 2), dtype=torch.float32, device=dev)
+    fn, blocks = _kernel()
+    ws = _build.workspace("gain_dense", dev, 1 + 2 * blocks)
+    out = torch.empty((2,), dtype=torch.float32, device=dev)
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), new_cams.data_ptr(),
         new_pts.data_ptr(), obs_du.data_ptr(), obs_dv.data_ptr(),
-        valid_d.data_ptr(), C, P, int(bool(clamp)), part.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        valid_d.data_ptr(), C, P, int(bool(clamp)), blocks, ws.data_ptr(),
+        out.data_ptr(), _build.stream(dev),
     )
     _build.check(err, "gain_dense")
     gain_dense.launches += 1
-    s = part.sum(0)
-    return s[0], s[1]
+    return out.unbind()
 
 
 gain_dense.launches = 0
@@ -148,6 +158,7 @@ def jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
     return _sym(tri, n)
 
 
+@functools.cache
 def _jgram_kernel():
     lib = _build.library("jgram_dense")
     if (lib.psba_jgram_dense_ptile() != PTILE
@@ -163,18 +174,22 @@ def _jgram_kernel():
     return fn
 
 
-def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False):
+def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False,
+                kq=None):
     """G [n, n] = <J x_a, J x_b> on the dense grid (coefficient-free: the
     TR scalars of B = 2 J^T J are 2 G). dirs_c [n, C, 6], dirs_p [n, 3, Pd]
     with Pd >= P (the planar width of linearize_dense, or P).
 
     CPU tensors run the plain version. CUDA tensors (float32, contiguous,
-    n <= JGRAM_MAX_N) launch csrc/jgram_dense.cu and count one launch."""
+    n <= JGRAM_MAX_N) launch csrc/jgram_dense.cu and count one launch; `kq`
+    as for gain_dense."""
     if valid_d.device.type == "cpu":
         return jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
                                  clamp=clamp)
+    if kq is None:
+        kq = torch.cat([K, q0], dim=1)
     dev = _build.cuda_inputs(
-        "jgram_dense", K=K, q0=q0, cams=cams, pts=pts, valid_d=valid_d,
+        "jgram_dense", kq=kq, cams=cams, pts=pts, valid_d=valid_d,
         dirs_c=dirs_c, dirs_p=dirs_p,
     )
     C, P = valid_d.shape
@@ -182,13 +197,12 @@ def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False):
     if not 1 <= n <= JGRAM_MAX_N:
         raise ValueError(f"jgram_dense: n = {n} directions, the kernel takes "
                          f"1 to {JGRAM_MAX_N}")
-    if (K.shape != (C, 5) or q0.shape != (C, 4) or cams.shape != (C, 6)
+    if (kq.shape != (C, 9) or cams.shape != (C, 6)
             or pts.shape != (P, 3) or dirs_c.shape != (n, C, 6)
             or dirs_p.shape != (n, 3, Pd) or Pd < P):
         raise ValueError("jgram_dense: inconsistent shapes")
     fn = _jgram_kernel()
     n_blocks = (-(-P // PTILE)) * (-(-C // CAM_CHUNK))
-    kq = torch.cat([K, q0], dim=1).contiguous()
     part = torch.empty((n_blocks, n * (n + 1) // 2), dtype=torch.float32,
                        device=dev)
     err = fn(

@@ -185,7 +185,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
 
     def jgram(c, p, dirs_c, dirs_p):
         return 2.0 * jgram_dense(pa.K, pa.q0, c, p, pa.valid_d, dirs_c,
-                                 dirs_p, clamp=clamp)
+                                 dirs_p, clamp=clamp, kq=pa.kq)
 
     def jx(A, B, x_c, x_p):
         return jmultiply(A, B, x_c, x_p, pa.cam_idx, pa.pt_idx)
@@ -207,7 +207,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 tables=pa.stream,
             )
             ZW0, ZW1, ZW2, Vp1, gbp1, Pp = linearize_dense(
-                pa.K, pa.q0, cams, pts, *grid, clamp=clamp)
+                pa.K, pa.q0, cams, pts, *grid, clamp=clamp, kq=pa.kq)
             U = 2.0 * U1
             Vp = 2.0 * Vp1
             ZW3 = (2.0 * ZW0, 2.0 * ZW1, 2.0 * ZW2)
@@ -311,7 +311,8 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 ptBp_t = 2.0 * torch.sum(Jp * Jp)
             else:
                 gain_t, act_t = gain_dense(pa.K, pa.q0, cams, pts, new_cams,
-                                           new_pts, *grid, clamp=clamp)
+                                           new_pts, *grid, clamp=clamp,
+                                           kq=pa.kq)
                 ptBp_t = jgram(cams, pts, p_c[None],
                                F.pad(p_p.T, (0, Pp - P))[None])[0, 0]
             # the one host read of the try

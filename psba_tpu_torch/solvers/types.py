@@ -14,6 +14,7 @@ from psba_tpu_torch.ops.linearize_stream import (
     StreamTables,
     build_stream_tables,
 )
+from psba_tpu_torch.ops.reduce import indexed_sum
 
 # Dense-Schur cap in (camera x point) cells: schur="auto" takes the dense
 # encoding up to it and the covisibility-pair encoding above. The dense S
@@ -85,10 +86,9 @@ def _diag_minmax(K, q0, cams, pts, cam_idx, pt_idx, clamp):
     from psba_tpu_torch.core.jacobian import jacobians
 
     A, B = jacobians(K, q0, cams, pts, cam_idx, pt_idx, clamp=clamp)
-    dU = torch.zeros((K.shape[0], 6), dtype=A.dtype, device=A.device)
-    dU.index_add_(0, cam_idx, (A * A).sum(1))
-    dV = torch.zeros((pts.shape[0], 3), dtype=A.dtype, device=A.device)
-    dV.index_add_(0, pt_idx, (B * B).sum(1))
+    # fixed-order sums: the same bits, and so the same damping, on every run
+    dU = indexed_sum((A * A).sum(1), cam_idx, K.shape[0])
+    dV = indexed_sum((B * B).sum(1), pt_idx, pts.shape[0])
     d = torch.cat([dU.reshape(-1), dV.reshape(-1)])
     mn = torch.min(torch.where(d > 0, d, torch.full_like(d, float("inf"))))
     return torch.max(d), mn
@@ -141,6 +141,11 @@ class ProblemArrays:
     pair_o1: torch.Tensor | None = None      # [N] int64
     pair_o2: torch.Tensor | None = None      # [N] int64
     pair_bucket: torch.Tensor | None = None  # [N] int64
+    # [C, 9] camera rows K | q0, built once here for the dense kernels
+    kq: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "kq", torch.cat([self.K, self.q0], dim=1))
 
     @staticmethod
     def from_problem(prob, dtype=None, device="cpu",

@@ -87,6 +87,106 @@ def test_gain_dense_kernel_matches_plain(cuda):
     assert _rel(l2, l2_p) < 1e-4
 
 
+def _dense_inputs(cuda, C, n_pts, seed):
+    """linearize_dense arguments for the first C cameras of a synthetic ring
+    of max(C, 2) cameras (perturbed from a seed) over its P points, with P
+    not a multiple of the 128-point tile."""
+    from psba_tpu_torch.io import synthetic_problem
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    prob = synthetic_problem(n_cams=max(C, 2), n_pts=n_pts, seed=seed)
+    assert prob.n_pts % 128 != 0
+    pa = ProblemArrays.from_problem(prob, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(seed)
+    cams = prob.cams[:C] + np.concatenate(
+        [1e-3 * rng.standard_normal((C, 3)),
+         1e-2 * rng.standard_normal((C, 3))], axis=1)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    return (pa.K[:C].contiguous(), pa.q0[:C].contiguous(), f(cams),
+            f(prob.pts), pa.obs_du[:C].contiguous(),
+            pa.obs_dv[:C].contiguous(), pa.valid_d[:C].contiguous())
+
+
+# C = 1, 9 (a ragged camera chunk of 1) and 138 cameras over a few hundred
+# points, and 9 cameras over ~60k points (some 470 point tiles, so the
+# in-launch sums run over many tiles)
+_RAGGED = [(1, 333), (9, 333), (138, 333), (9, 60_000)]
+
+
+@pytest.mark.parametrize("want_u", [True, False])
+@pytest.mark.parametrize("C, n_pts", _RAGGED)
+def test_linearize_dense_epilogue_matches_plain(cuda, C, n_pts, want_u):
+    """The in-launch V / gb and U / ga sums: final outputs within the
+    tolerances chip_smoke.py states (ZW 1e-5, Vp and U 1e-4, gbp and ga
+    1e-3), ZW = 0, gb = 0 and V = I in the padded lanes, U symmetric, one
+    launch per call, and two calls bit-identical."""
+    from psba_tpu_torch.ops import linearize_dense as ld
+
+    args = _dense_inputs(cuda, C, n_pts, seed=6)
+    P = args[3].shape[0]
+    before = ld.linearize_dense.launches
+    out = ld.linearize_dense(*args, want_u=want_u)
+    again = ld.linearize_dense(*args, want_u=want_u)
+    torch.cuda.synchronize()
+    assert ld.linearize_dense.launches == before + 2
+    ref = ld.linearize_dense_plain(*args, want_u=want_u)
+    assert len(out) == len(ref) == (8 if want_u else 6)
+    tols = {0: 1e-5, 1: 1e-5, 2: 1e-5, 3: 1e-4, 4: 1e-3, 6: 1e-4, 7: 1e-3}
+    for i, tol in tols.items():
+        if i < len(out):
+            assert out[i].shape == ref[i].shape, i
+            assert _rel(out[i], ref[i]) < tol, i
+            assert bool((again[i] == out[i]).all()), i
+    Pp = out[5]
+    assert Pp == ref[5] and Pp % 128 == 0 and Pp > P
+    for i in (0, 1, 2, 4):
+        assert bool((out[i][:, P:] == 0).all()), i
+    eye = torch.eye(3, device=cuda)[:, :, None]
+    assert bool((out[3][:, :, P:] == eye).all())
+    if want_u:
+        assert bool((out[6] == out[6].transpose(1, 2)).all())
+
+
+@pytest.mark.parametrize("C, n_pts", _RAGGED)
+def test_gain_dense_one_launch_matches_plain(cuda, C, n_pts):
+    """The persistent grid with the in-launch sum: (gain, new_l2) within
+    1e-3 / 1e-4 of the plain version, one launch per call, and two calls
+    bit-identical."""
+    from psba_tpu_torch.ops import residual_dense as rd
+
+    K, q0, cams, pts, du, dv, vd = _dense_inputs(cuda, C, n_pts, seed=7)
+    rng = np.random.default_rng(7)
+    new_cams = cams + torch.as_tensor(1e-4 * rng.standard_normal(cams.shape),
+                                      dtype=torch.float32, device=cuda)
+    new_pts = pts + torch.as_tensor(1e-3 * rng.standard_normal(pts.shape),
+                                    dtype=torch.float32, device=cuda)
+    args = (K, q0, cams, pts, new_cams, new_pts, du, dv, vd)
+    before = rd.gain_dense.launches
+    one = rd.gain_dense(*args)
+    two = rd.gain_dense(*args)
+    torch.cuda.synchronize()
+    assert rd.gain_dense.launches == before + 2
+    gain_p, l2_p = rd.gain_dense_plain(*args)
+    assert one[0].shape == () and one[1].shape == ()
+    assert _rel(one[0], gain_p) < 1e-3 and _rel(one[1], l2_p) < 1e-4
+    assert bool(one[0] == two[0]) and bool(one[1] == two[1])
+
+
+def test_damping_probe_on_cuda_is_fixed_order(cuda):
+    """Two damping probes on the card give the same bits (the sums per
+    camera and per point run in a fixed order), within 1e-5 of the CPU's."""
+    from psba_tpu_torch.solvers.types import _diag_minmax
+
+    _prob, pa, cams, pts = _problem(cuda, seed=8)
+    args = (pa.K, pa.q0, cams, pts, pa.cam_idx, pa.pt_idx, False)
+    one = _diag_minmax(*args)
+    two = _diag_minmax(*args)
+    cpu = _diag_minmax(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    for a, b, c in zip(one, two, cpu):
+        assert bool(a == b)
+        assert _rel(a.cpu(), c) < 1e-5
+
+
 @pytest.mark.parametrize("n", [1, 6, 31, 32, 33, 126, 127, 128, 129, 130,
                                500, 828, 1023, 1024])
 def test_spd_solve_kernel_matches_plain(cuda, n):

@@ -92,6 +92,41 @@ def test_marquardt_damping_runs(prob_synth):
     np.testing.assert_allclose(res.final_l2, ref.final_l2, rtol=1e-3)
 
 
+@pytest.mark.parametrize("fixture", ["prob_synth", "prob_mini_bal"])
+def test_damping_probe_matches_reference(fixture, request):
+    """The damping probe (max and min-positive of diag J^T J, summed per
+    camera and per point) against the reference's in float64 to 1e-6
+    relative, and the damping mode both packages resolve from it: at the
+    default tau, and at a tau that puts tau * max / min past 1 / eps."""
+    from psba_tpu.solvers.types import ProblemArrays as JProblemArrays
+    from psba_tpu.solvers.types import _diag_minmax as j_diag_minmax
+    from psba_tpu.solvers.types import resolve_damping as j_resolve
+    from psba_tpu_torch.solvers.types import (
+        ProblemArrays,
+        _diag_minmax,
+        resolve_damping,
+    )
+
+    prob = request.getfixturevalue(fixture)
+    jpa = JProblemArrays.from_problem(prob, dtype=jnp.float64)
+    jc = jnp.asarray(prob.cams, jnp.float64)
+    jp = jnp.asarray(prob.pts, jnp.float64)
+    ref = j_diag_minmax(jpa.K, jpa.q0, jc, jp, jpa.cam_idx, jpa.pt_idx,
+                        jpa.valid, False, prob.n_cams, prob.n_pts)
+    pa = ProblemArrays.from_problem(_port(prob), dtype=torch.float64)
+    tc = torch.as_tensor(prob.cams, dtype=torch.float64)
+    tp = torch.as_tensor(prob.pts, dtype=torch.float64)
+    got = _diag_minmax(pa.K, pa.q0, tc, tp, pa.cam_idx, pa.pt_idx, False)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(float(g), float(r), rtol=1e-6)
+    ratio = float(ref[0]) / float(ref[1])
+    for tau in (1e-3, 4.0 / (np.finfo(np.float64).eps * ratio)):
+        want = j_resolve(JSolverConfig(tau=tau), jpa, jc, jp).damping
+        have = resolve_damping(SolverConfig(tau=tau), pa, tc, tp).damping
+        assert have == want, (tau, have, want)
+    assert want == "marquardt"
+
+
 def test_state_carries_across(prob_mini_bal):
     """convert.from_reference puts the reference's state into the port:
     OptState.init then gives the reference's initial error."""
