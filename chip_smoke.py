@@ -23,10 +23,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      Ladybug-138: n = 126 / 828 reduced systems and n = 1024, the largest
      the kernel takes, each at every cluster size the card schedules, the
      observation stream with the TR flags and with every flag, the J-gram
-     at n = 1, 2, 3, the dense linearization with and without U), with the
-     tolerance stated, CUDA-event times (median after warm-up), each
-     kernel's device time from the profiler (for linearize_dense and
-     gain_dense also their launches and torch ops per call, and two calls
+     at n = 1-4 in both direction forms and on an empty grid, the dense
+     linearization with and without U; the trial-step residual with and
+     without its fused gain), with the tolerance stated, CUDA-event times
+     (median after warm-up), each kernel's device time from the profiler
+     (for linearize_dense, gain_dense, jgram_dense and residual_l2 also
+     their launches and torch ops per call, host time, and two calls
      checked bit-identical), its bound
      (the larger of bytes over HBM bandwidth and flops over the float32
      rate) and, where one PyTorch call computes the same function, that
@@ -80,8 +82,10 @@ LINEARIZE_DENSE_U_FLOPS = 84 + 24
 GAIN_DENSE_FLOPS = 2 * CELL_RESIDUAL_FLOPS + 8
 # the stream with the TR flags: mask (20), U (84), ga (24), l2 (4)
 LINEARIZE_STREAM_FLOPS = CELL_LINEARIZE_FLOPS + 132
-# the trial-step residual and its masked square (4)
+# the trial-step residual and its masked square (4); with the old residual
+# also the masked factored gain (eo - en)(eo + en) summed over two rows (9)
 RESIDUAL_L2_FLOPS = CELL_RESIDUAL_FLOPS + 4
+RESIDUAL_L2_GAIN_FLOPS = RESIDUAL_L2_FLOPS + 9
 # the stream with the pair path's flags: W = A^T B (54), B^T B (27),
 # B^T ex (12), the mask of B (6)
 PAIR_STREAM_FLOPS = LINEARIZE_STREAM_FLOPS + 99
@@ -96,10 +100,20 @@ FINAL961 = dict(n_cams=961, n_pts=187_103, mean_obs=9.0)
 DUBROVNIK356 = dict(n_cams=356, n_pts=226_730, mean_obs=5.0)
 
 
-def jgram_flops(n: int) -> int:
-    """Per observed cell: J x for n directions (2 rows x 17) and the
+def jgram_flops_full_model(n: int) -> int:
+    """The J-gram's count before its redesign, per observed cell: the
+    whole cell_linearize, then J x for n directions (2 rows x 17) and the
     n(n+1)/2 upper-triangle products (4 each)."""
     return CELL_LINEARIZE_FLOPS + 34 * n + 2 * n * (n + 1)
+
+
+def jgram_flops(n: int) -> int:
+    """Per observed cell, counted from csrc/jgram_dense.cu (an FMA as
+    two, a product the compiler shares counted once): X0 = R(q0) X 15,
+    w 9, p_c = R X + t 18, 1/p3 1, dp_c/dv 44 (g 9, cdot 5, M 30), the
+    masked projection factors 6 (93 in all); per direction y = M omega +
+    tau + R dp 36 and J x 8; per pair 4."""
+    return 93 + 44 * n + 2 * n * (n + 1)
 
 
 def need(cond: bool, msg: str) -> None:
@@ -134,22 +148,63 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def call_profile(fn, reps: int = 10) -> dict:
-    """What one call of fn does on the card, from torch.profiler over `reps`
-    calls after a warm-up: its device launches (kernels, copies, fills) per
-    call by name, and the torch ops it runs per call."""
+def kernel_records(prof, name) -> list:
+    """The device records in a profile of the kernel `name`, or of a
+    template instance of it."""
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and (f"::{name}(" in e.name or f"::{name}<" in e.name)]
+
+
+def complete_profile(run, counted, activities, tries: int = 5):
+    """torch.profiler over run(), taken again until it holds one device
+    record for each launch the wrappers counted. `counted` lists (wrapper,
+    counter attribute, the kernels one counted launch runs). CUPTI now and
+    then drops some or all of a window's device records, at times in a few
+    windows in a row; such a profile is taken again, up to `tries` in all.
+    Returns the profile."""
+    import torch
+    from torch.profiler import profile as tprofile
+
+    for attempt in range(1, tries + 1):
+        before = [getattr(w, attr) for w, attr, _ in counted]
+        with tprofile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+        lost = {}
+        for (w, attr, names), b in zip(counted, before):
+            launched = getattr(w, attr) - b
+            for k in names:
+                seen = len(kernel_records(prof, k))
+                if seen != launched:
+                    lost[k] = f"{seen} records of {launched} launches"
+        if not lost:
+            return prof
+        print(f"  profile {attempt} of {tries} lost device records: {lost}",
+              flush=True)
+        time.sleep(0.1 * attempt)
+    need(False, f"the profiler lost device records in {tries} profiles: "
+         f"{lost}")
+
+
+def call_profile(fn, wrapper, names, reps: int = 10) -> dict:
+    """What one call of fn does on the card, from a complete profile of
+    `reps` calls after a warm-up (`wrapper`'s counted launches each run the
+    kernels `names`): its device launches (kernels, copies, fills) per call
+    by name, and the torch ops it runs per call."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = complete_profile(
+        lambda: [fn() for _ in range(reps)],
+        [(wrapper, "launches", names)],
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     kernels, ops = {}, {}
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CUDA
@@ -162,31 +217,32 @@ def call_profile(fn, reps: int = 10) -> dict:
                 torch_ops=ops)
 
 
-def clean_l2_kernel_ms(fn, kernels, reps: int = 10) -> dict:
-    """Device ms per call of each named kernel of fn, median over `reps`
-    calls, each after a read of 256 MB that leaves the 50 MB L2 holding no
-    dirty line of an earlier kernel: the call's own traffic only."""
+def clean_l2_kernel_ms(fn, wrapper, kernels, reps: int = 10) -> dict:
+    """Device ms per call of each named kernel of fn (the kernels one
+    counted launch of `wrapper` runs), median over `reps` calls, each after
+    a read of 256 MB that leaves the 50 MB L2 holding no dirty line of an
+    earlier kernel: the call's own traffic only."""
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import ProfilerActivity
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             flush.sum()
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-    times = {k: [] for k in kernels}
-    for e in prof.events():
-        for k in kernels:
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and f"::{k}(" in e.name):
-                times[k].append(e.self_device_time_total / 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
+
+    prof = complete_profile(run, [(wrapper, "launches", kernels)],
+                            [ProfilerActivity.CUDA])
+    return {k: statistics.median(e.self_device_time_total / 1e3
+                                 for e in kernel_records(prof, k))
+            for k in kernels}
 
 
 def host_ms(fn, reps: int = 200) -> float:
@@ -265,11 +321,16 @@ def ring_problem(n_cams: int, n_pts: int, mean_obs: float):
 def check_residual_l2(prob, dev):
     """Kernel 6 against its plain version on CUDA tensors at `prob`'s shape
     (cameras perturbed from a seed), without and with a mask that drops the
-    last 1,000 observations. Returns (its row of the kernels line, the
-    unmasked arguments)."""
+    last 1,000 observations, each also with the old residual (the
+    residual at the unperturbed cameras), whose fused gain is held to
+    error_l2_diff on the same tensors; two calls bit-identical, launches
+    and torch ops per call, host time, and the kernel with L2 clean with
+    and without the gain, each against its own bound. Returns (its row of
+    the kernels line, the unmasked arguments)."""
     import numpy as np
     import torch
 
+    from psba_tpu_torch.core.residual import error_l2_diff
     from psba_tpu_torch.ops import linearize_stream as ls
 
     f32 = torch.float32
@@ -283,44 +344,110 @@ def check_residual_l2(prob, dev):
                                   device=dev)
     args = (f(prob.K), f(prob.q0), f(cams), f(prob.pts), f(prob.obs),
             i(prob.cam_idx), i(prob.pt_idx))
+    kq = torch.cat([args[0], args[1]], dim=1)
+    ex_old = ls.residual_l2_plain(args[0], args[1], f(prob.cams),
+                                  *args[3:])[0]
+    eo2 = float((ex_old.double() ** 2).sum())
     valid = (torch.arange(O, device=dev) < O - 1000).to(f32)
+    table_cams = ls._residual_kernel()[1]
+    print(f"  residual_l2: camera table in shared memory up to "
+          f"{table_cams} cameras (C = {C})", flush=True)
+    need(C <= table_cams, "residual_l2: final961_pairs' cameras do not fit "
+         "the shared-memory table")
     # ex = obs - proj: the kernel (with fused multiply-adds) and the plain
     # version each round the camera-frame point and the projection (up to
     # ~6e2 px) in float32, and points close to a camera (depth down to 0.3
     # against coordinates up to ~15) magnify that rounding to ~1e-3 px; so
     # ex is held to 1e-4 of max |ex| against the plain version and against
     # the float64 evaluation of the same inputs, as linearize_stream's ex.
-    # l2, a sum of 1.7M positive terms in another order: 1e-5.
+    # l2, a sum of 1.7M positive terms in another order: 1e-5. The gain, a
+    # sum of both signs, to 1e-5 of sum |eo|^2 against error_l2_diff of the
+    # same ex_old and the kernel's ex.
     ex64, _ = ls.residual_l2_plain(*(a.double() if a.is_floating_point()
                                      else a for a in args))
     errs, l2s = [], []
     for label, vm in (("no mask", None), ("mask", valid)):
-        ex_k, l2_k = ls.residual_l2(*args, vm)
+        ex_k, l2_k = ls.residual_l2(*args, vm, kq=kq)
         ex_p, l2_p = ls.residual_l2_plain(*args, vm)
+        fused = ls.residual_l2(*args, vm, kq=kq, ex_old=ex_old)
+        again = ls.residual_l2(*args, vm, kq=kq, ex_old=ex_old)
         torch.cuda.synchronize()
         need(ex_k.shape == (O, 2), f"residual_l2 ex shape {ex_k.shape}")
         errs.append(compare(f"residual_l2[{label}] ex", ex_k, ex_p, 1e-4))
         compare(f"residual_l2[{label}] ex vs f64", ex_k, ex64, 1e-4)
         compare(f"plain[{label}] ex vs f64", ex_p, ex64, 1e-4)
         errs.append(compare(f"residual_l2[{label}] l2", l2_k, l2_p, 1e-5))
+        gain_ref = error_l2_diff(ex_old, fused[0],
+                                 None if vm is None else vm > 0)
+        g_err = abs(float(fused[2]) - float(gain_ref))
+        print(f"  residual_l2[{label}] gain {float(fused[2]):.6e} vs "
+              f"error_l2_diff {float(gain_ref):.6e}: |diff| {g_err:.3e} = "
+              f"{g_err / eo2:.3e} of sum |eo|^2 (tolerance 1e-5)", flush=True)
+        need(g_err <= 1e-5 * eo2 and bool(torch.isfinite(fused[2])),
+             f"residual_l2[{label}]: fused gain and error_l2_diff disagree")
+        errs.append((g_err, g_err / eo2))
+        need(all(bool((a == b).all()) for a, b in zip(fused, again))
+             and bool((fused[0] == ex_k).all()) and bool(fused[1] == l2_k),
+             f"residual_l2[{label}]: two calls give different bits")
         l2s.append(float(l2_k))
+    print("  residual_l2: ex, l2 and gain bit-identical over two calls, "
+          "with and without the gain", flush=True)
     tail = float((ex_k[-1000:] ** 2).sum())
     print(f"  residual_l2 l2 {l2s[0]:.6e}, masked {l2s[1]:.6e}, the dropped "
           f"tail {tail:.6e}", flush=True)
     need(abs(l2s[0] - l2s[1] - tail) <= 1e-5 * l2s[0],
          "residual_l2: the mask does not drop the last observations")
+    call = lambda: ls.residual_l2(*args, kq=kq)
+    gcall = lambda: ls.residual_l2(*args, kq=kq, ex_old=ex_old)
+    kname = "residual_l2_kernel"
+    prof, gprof = (call_profile(call, ls.residual_l2, (kname,)),
+                   call_profile(gcall, ls.residual_l2, (kname,)))
+    for tag, pr in (("", prof), (" with the gain", gprof)):
+        print(f"  residual_l2{tag}: per call {pr['launches_per_call']} "
+              f"launches {pr['kernels']}, torch ops {pr['torch_ops']}",
+              flush=True)
+        # one allocation and its views, none of which launches device work
+        need(pr["launches_per_call"] == 1
+             and set(pr["torch_ops"]) <= {"aten::empty", "aten::as_strided"},
+             f"residual_l2{tag}: not one launch, or a torch op beyond the "
+             f"allocation of its outputs ({pr['kernels']}, "
+             f"{pr['torch_ops']})")
+    # reads K | q0 | cams, the points, obs and the two int32 index streams
+    # once (and ex_old with the gain); writes ex
+    b_plain = bound(4 * 15 * C + 12 * P + O * (8 + 8 + 8),
+                    RESIDUAL_L2_FLOPS * O)
+    b_gain = bound(4 * 15 * C + 12 * P + O * (8 + 8 + 8 + 8),
+                   RESIDUAL_L2_GAIN_FLOPS * O)
     row = dict(
         max_abs_err=max(e for e, _ in errs),
         max_rel_err=max(r for _, r in errs),
-        ms=cuda_ms(lambda: ls.residual_l2(*args)),
+        ms=cuda_ms(call), host_ms=host_ms(call),
+        kernel_ms_clean_l2=clean_l2_kernel_ms(call, ls.residual_l2,
+                                              (kname,))[kname],
+        launches_per_call=prof["launches_per_call"],
+        torch_ops_per_call=prof["torch_ops"],
+        ms_gain=cuda_ms(gcall), host_ms_gain=host_ms(gcall),
+        kernel_ms_clean_l2_gain=clean_l2_kernel_ms(
+            gcall, ls.residual_l2, (kname,))[kname],
+        launches_per_call_gain=gprof["launches_per_call"],
+        torch_ops_per_call_gain=gprof["torch_ops"],
+        bound_ms_gain=b_gain["bound_ms"], bound_by_gain=b_gain["bound_by"],
+        table_cameras=table_cams,
         plain_ms=cuda_ms(lambda: ls.residual_l2_plain(*args), warmup=1,
                          runs=5),
+        plain_ms_gain=cuda_ms(lambda: ls.residual_l2_plain(
+            *args, ex_old=ex_old), warmup=1, runs=5),
         library_ms=None,
-        # reads K | q0 | cams, the points, obs and the two int32 index
-        # streams once; writes ex
-        **bound(4 * 15 * C + 12 * P + O * (8 + 8 + 8),
-                RESIDUAL_L2_FLOPS * O),
+        **b_plain,
     )
+    print(f"  residual_l2: wrapper {row['ms']:.4f} ms (host "
+          f"{row['host_ms']:.4f} ms), kernel with L2 clean "
+          f"{row['kernel_ms_clean_l2']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms; with the gain: wrapper "
+          f"{row['ms_gain']:.4f} ms (host {row['host_ms_gain']:.4f} ms), "
+          f"kernel with L2 clean {row['kernel_ms_clean_l2_gain']:.4f} ms, "
+          f"bound {row['bound_ms_gain']:.4f} ms ({row['bound_by_gain']})",
+          flush=True)
     return row, args
 
 
@@ -486,10 +613,12 @@ def main(argv) -> int:
         del out_k, again, out_p
         call = (lambda want_u=want_u: ld.linearize_dense(
             *args, want_u=want_u, kq=pa.kq))
-        parts = clean_l2_kernel_ms(call, lin_kernels)
+        parts = clean_l2_kernel_ms(call, ld.linearize_dense, lin_kernels)
         lin[tag] = dict(ms=cuda_ms(call), host_ms=host_ms(call),
                         kernel_ms_clean_l2=sum(parts.values()),
-                        kernel_ms_clean_l2_parts=parts, **call_profile(call))
+                        kernel_ms_clean_l2_parts=parts,
+                        **call_profile(call, ld.linearize_dense,
+                                       lin_kernels))
         # reads the three [C, P] tables; writes ZW [3, 6C, Pp], V, gb (and
         # U, ga)
         lin[tag]["bound"] = bound(
@@ -510,7 +639,8 @@ def main(argv) -> int:
              and set(lin[tag]["torch_ops"]) <= {"aten::empty",
                                                 "aten::as_strided"},
              f"linearize_dense[{tag}]: more than two launches or a torch op "
-             "beyond the allocation of its outputs")
+             f"beyond the allocation of its outputs ({lin[tag]['kernels']}, "
+             f"{lin[tag]['torch_ops']})")
     rows["linearize_dense"] = dict(
         max_abs_err=max(e for e, _ in errs),
         max_rel_err=max(r for _, r in errs),
@@ -547,8 +677,9 @@ def main(argv) -> int:
     need(bool((g_again == g_k).all()),
          "gain_dense: two calls give different bits")
     gcall = lambda: rd.gain_dense(*gargs, kq=pa.kq)
-    gprof = call_profile(gcall)
-    g_clean = clean_l2_kernel_ms(gcall, ("gain_dense_kernel",))
+    gprof = call_profile(gcall, rd.gain_dense, ("gain_dense_kernel",))
+    g_clean = clean_l2_kernel_ms(gcall, rd.gain_dense,
+                                 ("gain_dense_kernel",))
     rows["gain_dense"] = dict(
         max_abs_err=max(e1[0], e2[0]), max_rel_err=max(e1[1], e2[1]),
         ms=cuda_ms(gcall), host_ms=host_ms(gcall),
@@ -566,7 +697,7 @@ def main(argv) -> int:
           f"{gprof['launches_per_call']} launch {gprof['kernels']}, torch "
           f"ops {gprof['torch_ops']}; two calls bit-identical", flush=True)
     need(gprof["launches_per_call"] == 1,
-         "gain_dense: not one launch per call")
+         f"gain_dense: not one launch per call ({gprof['kernels']})")
 
     chol_errs, chol_ms, chol_plain_ms, chol_lib_ms = [], {}, {}, {}
     chol_by_cluster = {}
@@ -669,90 +800,150 @@ def main(argv) -> int:
                 LINEARIZE_STREAM_FLOPS * O),
     )
 
-    # the J-gram: n = 1 (Cauchy curvature), 2 (the {P_U, P_B} Gram), 3;
+    # the J-gram: n = 1 (Cauchy curvature), 2 (the {P_U, P_B} Gram), 3, 4;
     # a sum over 2.5M cells in another order, 1e-4 of max |G|; the padded
-    # lanes of dirs_p carry garbage that must not count
+    # lanes of dirs_p carry garbage that must not count; the sequence form
+    # (the TR loop's [P, 3] point parts, read in place) gives the stacked
+    # form's bits; a grid with no observed cell gives exactly 0
     gram = {}
     errs = []
-    for n in (1, 2, 3):
+    for n in (1, 2, 3, 4):
         g = np.random.default_rng(100 + n)
         dc = torch.as_tensor(g.standard_normal((n, C, 6)), dtype=f32,
                              device=dev)
         dp = torch.as_tensor(g.standard_normal((n, 3, Pp)), dtype=f32,
                              device=dev)
         jargs = (pa.K, pa.q0, cams, pts, pa.valid_d, dc, dp)
-        G_k = rd.jgram_dense(*jargs)
+        G_k = rd.jgram_dense(*jargs, kq=pa.kq)
+        G_again = rd.jgram_dense(*jargs, kq=pa.kq)
         G_p = rd.jgram_dense_plain(*jargs)
         errs.append(compare(f"jgram_dense n={n}", G_k, G_p, 1e-4))
+        need(bool((G_k == G_k.T).all()) and bool((G_again == G_k).all()),
+             f"jgram_dense n={n}: G not symmetric, or two calls differ")
         dp0 = dp.clone()
         dp0[:, :, P:] = 0.0
-        need(bool((rd.jgram_dense(*jargs[:-1], dp0) == G_k).all()),
+        need(bool((rd.jgram_dense(*jargs[:-1], dp0, kq=pa.kq) == G_k).all()),
              "jgram_dense: padded lanes contribute")
+        seq = (list(dc.unbind()), [dp[a, :, :P].T for a in range(n)])
+        need(bool((rd.jgram_dense(*jargs[:-2], *seq, kq=pa.kq)
+                   == G_k).all()),
+             f"jgram_dense n={n}: the sequence form differs from the stacked")
+        empty = (*jargs[:4], torch.zeros_like(pa.valid_d), dc, dp)
+        need(bool((rd.jgram_dense(*empty, kq=pa.kq) == 0).all()),
+             f"jgram_dense n={n}: no observed cell, yet G != 0")
+        call = lambda jargs=jargs: rd.jgram_dense(*jargs, kq=pa.kq)
+        scall = lambda jargs=jargs, seq=seq: rd.jgram_dense(
+            *jargs[:-2], *seq, kq=pa.kq)
+        jk = ("jgram_dense_kernel",)
+        prof = call_profile(call, rd.jgram_dense, jk)
+        sprof = call_profile(scall, rd.jgram_dense, jk)
+        # reads K | q0 | cams, the points, the validity table and the
+        # directions once; writes G
+        dir_bytes = 4 * n * (6 * C + 3 * P)
         gram[n] = dict(
-            jargs=jargs,
-            ms=cuda_ms(lambda jargs=jargs: rd.jgram_dense(*jargs)),
-            **bound(cam_bytes + 12 * P + 4 * C * P
-                    + 4 * n * (6 * C + 3 * Pp) + 4 * n * n,
+            jargs=jargs, ms=cuda_ms(call), host_ms=host_ms(call),
+            ms_seq=cuda_ms(scall), host_ms_seq=host_ms(scall),
+            kernel_ms_clean_l2=clean_l2_kernel_ms(
+                call, rd.jgram_dense, jk)["jgram_dense_kernel"],
+            # the fixed cost: every warp skips its cells
+            kernel_ms_clean_l2_empty=clean_l2_kernel_ms(
+                lambda empty=empty: rd.jgram_dense(*empty, kq=pa.kq),
+                rd.jgram_dense, jk)["jgram_dense_kernel"],
+            launches_per_call=prof["launches_per_call"],
+            torch_ops_per_call=prof["torch_ops"],
+            launches_per_call_seq=sprof["launches_per_call"],
+            torch_ops_per_call_seq=sprof["torch_ops"],
+            **bound(cam_bytes + 12 * P + 4 * C * P + dir_bytes + 4 * n * n,
                     jgram_flops(n) * O),
         )
-        print(f"  jgram_dense n={n}: {gram[n]['ms']:.4f} ms (bound "
-              f"{gram[n]['bound_ms']:.4f} ms, {gram[n]['bound_by']})",
-              flush=True)
+        old = bound(cam_bytes + 12 * P + 4 * C * P + dir_bytes + 4 * n * n,
+                    jgram_flops_full_model(n) * O)
+        gram[n].update(bound_ms_full_model=old["bound_ms"],
+                       bound_flops_full_model=old["bound_flops"])
+        v = gram[n]
+        print(f"  jgram_dense n={n}: wrapper {v['ms']:.4f} ms (host "
+              f"{v['host_ms']:.4f} ms; sequence form {v['ms_seq']:.4f} / "
+              f"host {v['host_ms_seq']:.4f} ms), kernel with L2 clean "
+              f"{v['kernel_ms_clean_l2']:.4f} ms (empty grid "
+              f"{v['kernel_ms_clean_l2_empty']:.4f} ms), bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}; counting the "
+              f"full cell model {v['bound_ms_full_model']:.4f} ms); per call "
+              f"{prof['launches_per_call']} launch {prof['kernels']}, torch "
+              f"ops {prof['torch_ops']} (sequence form "
+              f"{sprof['launches_per_call']}, {sprof['torch_ops']}); "
+              "symmetric, two calls bit-identical, sequence form the same "
+              "bits, empty grid 0", flush=True)
+        for tag, pr in (("", prof), (" (sequence form)", sprof)):
+            need(pr["launches_per_call"] == 1
+                 and set(pr["torch_ops"]) <= {"aten::empty"},
+                 f"jgram_dense n={n}{tag}: not one launch, or a torch op "
+                 f"beyond the allocation of G ({pr['kernels']}, "
+                 f"{pr['torch_ops']})")
     j2 = gram[2]["jargs"]
+    keep = ("ms", "host_ms", "ms_seq", "host_ms_seq", "kernel_ms_clean_l2",
+            "kernel_ms_clean_l2_empty", "launches_per_call",
+            "torch_ops_per_call", "launches_per_call_seq",
+            "torch_ops_per_call_seq", "bound_ms", "bound_ms_full_model")
     rows["jgram_dense"] = dict(
         max_abs_err=max(e for e, _ in errs),
         max_rel_err=max(r for _, r in errs),
-        ms=gram[2]["ms"], ms_n1=gram[1]["ms"], ms_n3=gram[3]["ms"],
         plain_ms=cuda_ms(lambda: rd.jgram_dense_plain(*j2), warmup=1,
                          runs=5),
         library_ms=None,
-        **{k: gram[2][k] for k in ("bound_ms", "bound_by", "bound_bytes",
-                                   "bound_flops")},
+        **{k: gram[2][k] for k in keep + (
+            "bound_by", "bound_bytes", "bound_flops",
+            "bound_flops_full_model")},
+        **{f"{k}_n{n}": gram[n][k] for n in (1, 3, 4) for k in keep},
     )
 
     # device time of each kernel alone (the wrapper's time above includes
     # its host work before the launch): profiler, mean of 10 calls in turns
     # with the others; linearize_dense's is its two kernels together
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import ProfilerActivity
 
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+    def mean_ms(prof, k):
+        recs = kernel_records(prof, k)
+        return sum(e.self_device_time_total for e in recs) / 1e3 / len(recs)
+
+    def in_turns():
         for _ in range(10):
             ld.linearize_dense(*args, want_u=True, kq=pa.kq)
             rd.gain_dense(*gargs, kq=pa.kq)
             chol.spd_solve(S828, b828)
             ls.linearize_stream(*sargs, None, C, P, tables=pa.stream,
                                 **tr_flags)
-            rd.jgram_dense(*j2)
+            rd.jgram_dense(*j2, kq=pa.kq)
             ls.residual_l2(*rargs)
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        for k in rows:
-            if f"(anonymous namespace)::{k}_kernel" in e.key:
-                rows[k]["kernel_ms"] = e.self_device_time_total / 1e3 / e.count
-        if "(anonymous namespace)::linearize_dense_finish_kernel" in e.key:
-            rows["linearize_dense"]["finish_kernel_ms"] = (
-                e.self_device_time_total / 1e3 / e.count)
-    need("finish_kernel_ms" in rows["linearize_dense"],
-         "linearize_dense: the finishing kernel not seen by the profiler")
+
+    wrappers = dict(linearize_dense=ld.linearize_dense,
+                    gain_dense=rd.gain_dense, spd_solve=chol.spd_solve,
+                    linearize_stream=ls.linearize_stream,
+                    jgram_dense=rd.jgram_dense, residual_l2=ls.residual_l2)
+    need(set(wrappers) == set(rows), f"rows {sorted(rows)}")
+    prof = complete_profile(
+        in_turns,
+        [(w, "launches", (f"{k}_kernel",)) for k, w in wrappers.items()]
+        + [(ld.linearize_dense, "launches",
+            ("linearize_dense_finish_kernel",))],
+        [ProfilerActivity.CUDA])
+    for k in rows:
+        rows[k]["kernel_ms"] = mean_ms(prof, f"{k}_kernel")
+    rows["linearize_dense"]["finish_kernel_ms"] = mean_ms(
+        prof, "linearize_dense_finish_kernel")
     rows["linearize_dense"]["grid_kernel_ms"] = (
         rows["linearize_dense"]["kernel_ms"])
     rows["linearize_dense"]["kernel_ms"] += (
         rows["linearize_dense"]["finish_kernel_ms"])
     # the pair flags run the camera pass and the point pass: their device
     # times, each a mean over 10 calls, and their sum
+    passes = ("linearize_stream_kernel", "linearize_stream_points_kernel")
     for label, call in pair_calls.items():
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        parts = {}
-        for e in prof.key_averages():
-            for kname in ("linearize_stream_kernel",
-                          "linearize_stream_points_kernel"):
-                if f"(anonymous namespace)::{kname}" in e.key:
-                    parts[kname] = e.self_device_time_total / 1e3 / 10
-        need(len(parts) == 2, f"linearize_stream[{label}]: the profiler saw "
-             f"{sorted(parts)}, not both passes")
+        prof = complete_profile(
+            lambda call=call: [call() for _ in range(10)],
+            [(ls.linearize_stream, "launches", passes[:1]),
+             (ls.linearize_stream, "point_launches", passes[1:])],
+            [ProfilerActivity.CUDA])
+        parts = {k: mean_ms(prof, k) for k in passes}
         pair_stream[f"kernel_ms_{label}"] = sum(parts.values())
         pair_stream[f"kernel_ms_{label}_passes"] = parts
         print(f"[2] linearize_stream[{label}]: wrapper "
@@ -765,7 +956,6 @@ def main(argv) -> int:
     rows["linearize_stream"].update(pair_stream)
     del pair_calls
     for k, v in rows.items():
-        need("kernel_ms" in v, f"{k}: kernel not seen by the profiler")
         lib = ("none" if v["library_ms"] is None
                else f"{v['library_ms']:.4f} ms")
         print(f"[2] {k}: wrapper {v['ms']:.4f} ms (kernel alone "

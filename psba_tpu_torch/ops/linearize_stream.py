@@ -23,15 +23,17 @@ sums, each without atomics. `StreamTables` holds both walks, built once per
 problem (ProblemArrays.stream).
 
 `residual_l2` is the trial step of the pair-encoding LM / TR loops: ex [O, 2]
-(unmasked) and l2 = sum valid * |ex|^2 at new parameters, launching
-csrc/residual_l2.cu on CUDA tensors (float32, int32 indices) and running
-`residual_l2_plain` on CPU tensors.
+(unmasked) and l2 = sum valid * |ex|^2 at new parameters, and with the old
+residual the trial gain in the same pass, launching csrc/residual_l2.cu on
+CUDA tensors (float32, int32 indices) and running `residual_l2_plain` on
+CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -303,74 +305,111 @@ linearize_stream.point_launches = 0
 
 
 def residual_l2_plain(K, q0, cams, pts, obs, cam_idx, pt_idx, valid=None,
-                      clamp=False):
+                      clamp=False, ex_old=None):
     """Plain PyTorch version (any dtype, any device): (ex [O, 2] unmasked,
-    l2 = sum valid * |ex|^2 as a 0-d tensor)."""
+    l2 = sum valid * |ex|^2 as a 0-d tensor), and with `ex_old` also the
+    gain sum valid * sum_r (eo - en)(eo + en), by the operations of
+    core.residual.error_l2_diff (the same bits without `valid`)."""
     rows = camera_rows(K, q0, cams)[cam_idx.long()]            # [O, 15]
     X = pts[pt_idx.long()]
     one = torch.ones_like(obs[:, :1])
     exu, exv = cell_residual(rows, X[:, 0:1], X[:, 1:2], X[:, 2:3],
                              obs[:, 0:1], obs[:, 1:2], one, clamp)
+    m = None if valid is None else valid.to(obs.dtype)
     e2 = (exu * exu + exv * exv)[:, 0]
-    if valid is not None:
-        e2 = e2 * valid.to(obs.dtype)
-    return torch.cat([exu, exv], dim=1), e2.sum()
+    if m is not None:
+        e2 = e2 * m
+    ex = torch.cat([exu, exv], dim=1)
+    if ex_old is None:
+        return ex, e2.sum()
+    s = torch.sum((ex_old - ex) * (ex_old + ex), dim=-1)
+    if m is not None:
+        s = s * m
+    return ex, e2.sum(), torch.sum(s)
 
 
+@functools.cache
 def _residual_kernel():
+    """(the launcher, the most cameras whose records a block's shared
+    memory holds)."""
     lib = _build.library("residual_l2")
+    table_cams = lib.psba_residual_l2_table_cameras()
+    if table_cams < 0:
+        raise RuntimeError("residual_l2: cannot size the kernel's camera "
+                           "table on this device")
     fn = lib.psba_residual_l2
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + (
-        [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + (
+        [ctypes.c_void_p] * 4
     )
     fn.restype = ctypes.c_int
-    return fn, lib.psba_residual_l2_per_block()
+    return fn, table_cams
+
+
+@functools.cache
+def _residual_blocks(C: int, table: bool) -> int:
+    """Blocks of the kernel the current device holds resident at once for C
+    cameras: its largest grid."""
+    blocks = _build.library("residual_l2").psba_residual_l2_resident_blocks(
+        C, int(table))
+    if blocks < 1:
+        raise RuntimeError(f"residual_l2: no block of the kernel fits the "
+                           f"device at C = {C}")
+    return blocks
 
 
 def residual_l2(K, q0, cams, pts, obs, cam_idx, pt_idx, valid=None,
-                clamp=False):
+                clamp=False, kq=None, ex_old=None):
     """Trial-step residual ex [O, 2] (unmasked) and l2 = sum valid *
-    |ex|^2 (0-d); `valid` [O] optional.
+    |ex|^2 (0-d); `valid` [O] optional. With `ex_old` [O, 2] it returns
+    (ex, l2, gain), gain = sum valid * sum_r (eo - en)(eo + en), the
+    factored error_l2_diff(ex_old, ex).
 
     CPU tensors run the plain version. CUDA tensors (float32, contiguous;
     cam_idx / pt_idx contiguous int32, ProblemArrays.cam_idx32 / pt_idx32)
-    launch csrc/residual_l2.cu and count one launch; the per-block partial
-    sums of l2 are added outside."""
+    launch csrc/residual_l2.cu, which sums l2 and the gain itself, and
+    count one launch; the outputs are views of one allocation. `kq` is the
+    [C, 9] camera rows K | q0 (ProblemArrays.kq), built here when not
+    given."""
     if obs.device.type == "cpu":
         return residual_l2_plain(K, q0, cams, pts, obs, cam_idx, pt_idx,
-                                 valid=valid, clamp=clamp)
-    floats = dict(K=K, q0=q0, cams=cams, pts=pts, obs=obs)
+                                 valid=valid, clamp=clamp, ex_old=ex_old)
+    if kq is None:
+        kq = torch.cat([K, q0], dim=1)
+    floats = dict(kq=kq, cams=cams, pts=pts, obs=obs)
     if valid is not None:
         floats["valid"] = valid
+    if ex_old is not None:
+        floats["ex_old"] = ex_old
     dev = _build.cuda_inputs("residual_l2", **floats)
-    O, C, P = obs.shape[0], K.shape[0], pts.shape[0]
-    if (O < 1 or q0.shape != (C, 4) or K.shape != (C, 5)
-            or cams.shape != (C, 6) or pts.shape != (P, 3)
-            or obs.shape != (O, 2)
-            or (valid is not None and valid.shape != (O,))):
+    O, C, P = obs.shape[0], kq.shape[0], pts.shape[0]
+    if (O < 1 or kq.shape != (C, 9) or cams.shape != (C, 6)
+            or pts.shape != (P, 3) or obs.shape != (O, 2)
+            or (valid is not None and valid.shape != (O,))
+            or (ex_old is not None and ex_old.shape != (O, 2))):
         raise ValueError("residual_l2: inconsistent shapes")
-    if obs.data_ptr() % 8:
-        raise ValueError("residual_l2: obs must be 8-byte aligned")
+    if obs.data_ptr() % 8 or (ex_old is not None and ex_old.data_ptr() % 8):
+        raise ValueError("residual_l2: obs and ex_old must be 8-byte "
+                         "aligned")
     for name, t in (("cam_idx", cam_idx), ("pt_idx", pt_idx)):
         if (t.device != dev or t.dtype != torch.int32
                 or not t.is_contiguous() or t.shape != (O,)):
             raise ValueError(f"residual_l2: {name} must be a contiguous "
                              f"int32 [O] tensor on {dev}")
-    fn, per_block = _residual_kernel()
-    f32 = dict(dtype=torch.float32, device=dev)
-    kq = torch.cat([K, q0], dim=1).contiguous()
-    ex = torch.empty((O, 2), **f32)
-    part = torch.empty((-(-O // per_block),), **f32)
+    fn, table_cams = _residual_kernel()
+    table = C <= table_cams
+    blocks = _residual_blocks(C, table)
+    ws = _build.workspace("residual_l2", dev, 1 + 2 * blocks)
+    ex, l2, gain = _build.carve(dev, (O, 2), (), ())
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), obs.data_ptr(),
-        cam_idx.data_ptr(), pt_idx.data_ptr(),
-        None if valid is None else valid.data_ptr(), O, int(bool(clamp)),
-        ex.data_ptr(), part.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        cam_idx.data_ptr(), pt_idx.data_ptr(), ptr(valid), ptr(ex_old), C,
+        O, int(bool(clamp)), int(table), blocks, ws.data_ptr(),
+        ex.data_ptr(), l2.data_ptr(), _build.stream(dev),
     )
     _build.check(err, "residual_l2")
     residual_l2.launches += 1
-    return ex, part.sum()
+    return (ex, l2) if ex_old is None else (ex, l2, gain)
 
 
 residual_l2.launches = 0

@@ -12,7 +12,8 @@ form is exact in real numbers and keeps the difference of two nearly equal
 sums meaningful in float32 near convergence. No [O, 2] residual is stored.
 
 The TR phase needs the curvature of its model along a few directions x_a
-(camera parts dirs_c [n, C, 6], planar point parts dirs_p [n, 3, Pd]):
+(camera parts [C, 6], point parts [P, 3]; stacked, dirs_c [n, C, 6] and
+planar dirs_p [n, 3, Pd], or as sequences):
 
   G[a, b] = <J x_a, J x_b>
 
@@ -132,25 +133,37 @@ def _sym(tri, n):
                         for b in range(n)]).reshape(n, n)
 
 
+def _directions(dirs_c, dirs_p):
+    """[(dc [C, 6], dp [3, >= P] rows)] per direction, from the stacked form
+    (dirs_c [n, C, 6], dirs_p [n, 3, Pd], Pd >= P) or the sequence form (n
+    tensors [C, 6], n tensors [P, 3]); the point parts are views."""
+    if isinstance(dirs_c, torch.Tensor):
+        return [(dirs_c[a], dirs_p[a]) for a in range(dirs_c.shape[0])]
+    if len(dirs_c) != len(dirs_p):
+        raise ValueError(f"jgram_dense: {len(dirs_c)} camera parts, "
+                         f"{len(dirs_p)} point parts")
+    return [(dc, dp.T) for dc, dp in zip(dirs_c, dirs_p)]
+
+
 def jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
                       clamp=False):
     """Plain PyTorch version: G [n, n] with G[a, b] = <J x_a, J x_b> over the
-    observed cells of the [C, P] grid; dirs_p may be wider than P (padded
-    lanes are ignored)."""
+    observed cells of the [C, P] grid; the directions in either form of
+    jgram_dense (padded lanes of a stacked dirs_p are ignored)."""
     C, P = valid_d.shape
-    n = dirs_c.shape[0]
     x = pts.T
     zero = torch.zeros_like(valid_d)
     A, B, _exu, _exv = _cell_model(camera_rows(K, q0, cams), x[0:1], x[1:2],
                                    x[2:3], zero, zero, valid_d, clamp)
     jx = []
-    for a in range(n):
-        dc, dp = dirs_c[a], dirs_p[a, :, :P]
+    for dc, dp in _directions(dirs_c, dirs_p):
+        dp = dp[:, :P]
         jx.append([
             sum(A[r][i] * dc[:, i:i + 1] for i in range(6))
             + sum(B[r][k] * dp[k:k + 1] for k in range(3))
             for r in range(2)
         ])
+    n = len(jx)
     tri = torch.stack([
         (jx[a][0] * jx[b][0] + jx[a][1] * jx[b][1]).sum()
         for a in range(n) for b in range(a, n)
@@ -161,58 +174,99 @@ def jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
 @functools.cache
 def _jgram_kernel():
     lib = _build.library("jgram_dense")
-    if (lib.psba_jgram_dense_ptile() != PTILE
-            or lib.psba_jgram_dense_cam_chunk() != CAM_CHUNK
+    if (lib.psba_jgram_dense_cam_chunk() != CAM_CHUNK
             or lib.psba_jgram_dense_max_n() != JGRAM_MAX_N):
         raise RuntimeError("jgram_dense.cu constants differ from "
                            "psba_tpu_torch.ops.residual_dense")
     fn = lib.psba_jgram_dense
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + (
-        [ctypes.c_void_p] * 2
-    )
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _jgram_blocks(n: int) -> int:
+    """Blocks of the n-direction kernel the current device holds resident
+    at once."""
+    blocks = _build.library("jgram_dense").psba_jgram_dense_resident_blocks(n)
+    if blocks < 1:
+        raise RuntimeError("jgram_dense: no block of the kernel fits the "
+                           "device")
+    return blocks
 
 
 def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False,
                 kq=None):
     """G [n, n] = <J x_a, J x_b> on the dense grid (coefficient-free: the
-    TR scalars of B = 2 J^T J are 2 G). dirs_c [n, C, 6], dirs_p [n, 3, Pd]
-    with Pd >= P (the planar width of linearize_dense, or P).
+    TR scalars of B = 2 J^T J are 2 G). The directions come stacked,
+    dirs_c [n, C, 6] and dirs_p [n, 3, Pd] with Pd >= P (the planar width
+    of linearize_dense, or P), or as sequences of n camera parts [C, 6]
+    and n point parts [P, 3] (any strides), which the kernel reads in
+    place.
 
-    CPU tensors run the plain version. CUDA tensors (float32, contiguous,
-    n <= JGRAM_MAX_N) launch csrc/jgram_dense.cu and count one launch; `kq`
-    as for gain_dense."""
+    CPU tensors run the plain version. CUDA tensors (float32, the camera
+    parts contiguous, n <= JGRAM_MAX_N) launch csrc/jgram_dense.cu, which
+    writes the symmetric G itself, and count one launch; `kq` as for
+    gain_dense."""
     if valid_d.device.type == "cpu":
         return jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
                                  clamp=clamp)
     if kq is None:
         kq = torch.cat([K, q0], dim=1)
-    dev = _build.cuda_inputs(
-        "jgram_dense", kq=kq, cams=cams, pts=pts, valid_d=valid_d,
-        dirs_c=dirs_c, dirs_p=dirs_p,
-    )
+    dev = _build.cuda_inputs("jgram_dense", kq=kq, cams=cams, pts=pts,
+                             valid_d=valid_d)
     C, P = valid_d.shape
-    n, Pd = dirs_c.shape[0], dirs_p.shape[-1]
+    if kq.shape != (C, 9) or cams.shape != (C, 6) or pts.shape != (P, 3):
+        raise ValueError("jgram_dense: inconsistent shapes")
+    # per direction: the camera part's address, the point part's address
+    # and the strides of its entry (k, p), taken without a torch op
+    if isinstance(dirs_c, torch.Tensor):
+        n = dirs_c.shape[0]
+        if (dirs_c.shape != (n, C, 6) or dirs_p.dim() != 3
+                or dirs_p.shape[:2] != (n, 3) or dirs_p.shape[2] < P):
+            raise ValueError("jgram_dense: inconsistent shapes")
+        if not dirs_c.is_contiguous():
+            raise ValueError("jgram_dense: dirs_c must be contiguous")
+        tensors = (dirs_c, dirs_p)
+        cs, ps = 4 * dirs_c.stride(0), 4 * dirs_p.stride(0)
+        dcs = [dirs_c.data_ptr() + a * cs for a in range(n)]
+        dps = [dirs_p.data_ptr() + a * ps for a in range(n)]
+        sks, sps = [dirs_p.stride(1)] * n, [dirs_p.stride(2)] * n
+    else:
+        n = len(dirs_c)
+        if len(dirs_p) != n or any(dc.shape != (C, 6) for dc in dirs_c) or (
+                any(dp.shape != (P, 3) for dp in dirs_p)):
+            raise ValueError("jgram_dense: the sequence form takes n camera "
+                             "parts [C, 6] and n point parts [P, 3]")
+        if not all(dc.is_contiguous() for dc in dirs_c):
+            raise ValueError("jgram_dense: camera parts must be contiguous")
+        tensors = (*dirs_c, *dirs_p)
+        dcs = [dc.data_ptr() for dc in dirs_c]
+        dps = [dp.data_ptr() for dp in dirs_p]
+        sks, sps = [dp.stride(1) for dp in dirs_p], [dp.stride(0)
+                                                     for dp in dirs_p]
     if not 1 <= n <= JGRAM_MAX_N:
         raise ValueError(f"jgram_dense: n = {n} directions, the kernel takes "
                          f"1 to {JGRAM_MAX_N}")
-    if (kq.shape != (C, 9) or cams.shape != (C, 6)
-            or pts.shape != (P, 3) or dirs_c.shape != (n, C, 6)
-            or dirs_p.shape != (n, 3, Pd) or Pd < P):
-        raise ValueError("jgram_dense: inconsistent shapes")
+    if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"jgram_dense: directions must be float32 on {dev}")
+    pad = [None] * (JGRAM_MAX_N - n)
+    zero = [0] * (JGRAM_MAX_N - n)
     fn = _jgram_kernel()
-    n_blocks = (-(-P // PTILE)) * (-(-C // CAM_CHUNK))
-    part = torch.empty((n_blocks, n * (n + 1) // 2), dtype=torch.float32,
-                       device=dev)
+    blocks = _jgram_blocks(n)
+    ws = _build.workspace("jgram_dense", dev, 1 + max(
+        blocks, -(-C // CAM_CHUNK)) * (n * (n + 1) // 2))
+    G = torch.empty((n, n), dtype=torch.float32, device=dev)
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), valid_d.data_ptr(),
-        dirs_c.data_ptr(), dirs_p.data_ptr(), n, C, P, Pd, int(bool(clamp)),
-        part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        *dcs, *pad, *dps, *pad, *sks, *zero, *sps, *zero,
+        n, C, P, int(bool(clamp)), blocks, ws.data_ptr(), ws.numel(),
+        G.data_ptr(), _build.stream(dev),
     )
     _build.check(err, "jgram_dense")
     jgram_dense.launches += 1
-    return _sym(part.sum(0), n)
+    return G
 
 
 jgram_dense.launches = 0

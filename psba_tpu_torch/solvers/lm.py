@@ -11,9 +11,9 @@ damp U and V, invert V, assemble and solve the reduced camera system
     residual ex is never formed and stays at its phase-entry value.
   - pairs (ProblemArrays with the pair list): the observation stream
     (ops.linearize_stream with the point sums and W; inv3x3, y_blocks,
-    schur_S, reduced_rhs, back_substitute); the trial residual comes from
-    ops.residual_l2, the gain is error_l2_diff(ex, new_ex), and ex is
-    refreshed on accept.
+    schur_S, reduced_rhs, back_substitute); the trial residual and the
+    gain, the factored error_l2_diff(ex, new_ex), come from one
+    ops.residual_l2 call, and ex is refreshed on accept.
 
 The loops are eager Python. Tensors stay on the device; once per try the
 few scalars that decide acceptance are read to the host in one transfer,
@@ -40,7 +40,6 @@ import torch
 from psba_tpu_torch import constants as CC
 from psba_tpu_torch.core.hessian import damp_uv, damp_uv_marquardt, max_diag
 from psba_tpu_torch.core.linalg import spd_solve
-from psba_tpu_torch.core.residual import error_l2_diff
 from psba_tpu_torch.core.schur import (
     back_substitute,
     back_substitute_dense3,
@@ -186,11 +185,10 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             new_cams = cams + dpa
             new_pts = pts + dpb
             if pairs:
-                new_ex, _new_l2 = residual_l2(
+                new_ex, _new_l2, gain_t = residual_l2(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
-                    pa.pt_idx32, None, clamp=clamp,
+                    pa.pt_idx32, None, clamp=clamp, kq=pa.kq, ex_old=ex,
                 )
-                gain_t = error_l2_diff(ex, new_ex)
             else:
                 gain_t, _new_l2 = gain_dense(
                     pa.K, pa.q0, cams, pts, new_cams, new_pts, *tables,

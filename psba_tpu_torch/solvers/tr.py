@@ -13,8 +13,9 @@ in the model prediction).
   - pairs: one stream pass gives V, W, gb and the Jacobians A, B as well;
     the reduced system comes from the pair family (inv3x3, y_blocks,
     schur_S, reduced_rhs, back_substitute), every |J x|^2 from
-    core.jacobian.jmultiply, each trial residual from ops.residual_l2 with
-    the gain error_l2_diff(ex, new_ex); ex is refreshed on accept.
+    core.jacobian.jmultiply, each trial residual and its gain, the factored
+    error_l2_diff(ex, new_ex), from one ops.residual_l2 call; ex is
+    refreshed on accept.
 
 Then, in both:
 
@@ -46,14 +47,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from psba_tpu_torch import constants as CC
 from psba_tpu_torch.core.gmw import gmw_bootstrap_lambda
 from psba_tpu_torch.core.hessian import damp_uv
 from psba_tpu_torch.core.jacobian import jmultiply
 from psba_tpu_torch.core.linalg import spd_solve
-from psba_tpu_torch.core.residual import error_l2_diff
 from psba_tpu_torch.core.schur import (
     back_substitute,
     back_substitute_dense3,
@@ -184,6 +183,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     pairs = pa.pairs
 
     def jgram(c, p, dirs_c, dirs_p):
+        # the directions as sequences of [C, 6] / [P, 3] parts, read in place
         return 2.0 * jgram_dense(pa.K, pa.q0, c, p, pa.valid_d, dirs_c,
                                  dirs_p, clamp=clamp, kq=pa.kq)
 
@@ -206,7 +206,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 C, P, clamp=clamp, want_point=False, want_w=False,
                 tables=pa.stream,
             )
-            ZW0, ZW1, ZW2, Vp1, gbp1, Pp = linearize_dense(
+            ZW0, ZW1, ZW2, Vp1, gbp1, _Pp = linearize_dense(
                 pa.K, pa.q0, cams, pts, *grid, clamp=clamp, kq=pa.kq)
             U = 2.0 * U1
             Vp = 2.0 * Vp1
@@ -225,7 +225,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             Jg = jx(A, B, gh_c, gh_p)
             gtBg_n = 2.0 * torch.sum(Jg * Jg)
         else:
-            gtBg_n = jgram(cams, pts, gh_c[None], (g_pp3 / gm)[None])[0, 0]
+            gtBg_n = jgram(cams, pts, [gh_c], [gh_p])[0, 0]
         gtg_n = _dot(gh_c, gh_p, gh_c, gh_p)
         scal = -(gtg_n / gtBg_n)
         pu_c, pu_p = scal * g_c, scal * g_p
@@ -289,9 +289,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 pUtBpB = 2.0 * torch.sum(Jpu * Jpb)
                 pBtBpB = 2.0 * torch.sum(Jpb * Jpb)
             else:
-                pb_pp3 = F.pad(pb_p.T, (0, Pp - P))
-                Gm = jgram(cams, pts, torch.stack([pu_c, pb_c]),
-                           torch.stack([scal * g_pp3, pb_pp3]))
+                Gm = jgram(cams, pts, [pu_c, pb_c], [pu_p, pb_p])
                 pUtBpU, pUtBpB, pBtBpB = Gm[0, 0], Gm[0, 1], Gm[1, 1]
 
         # model / radius loop
@@ -302,19 +300,17 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             )
             new_cams, new_pts = cams + p_c, pts + p_p
             if pairs:
-                new_ex, act_t = residual_l2(
+                new_ex, act_t, gain_t = residual_l2(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
-                    pa.pt_idx32, None, clamp=clamp,
+                    pa.pt_idx32, None, clamp=clamp, kq=pa.kq, ex_old=ex,
                 )
-                gain_t = error_l2_diff(ex, new_ex)
                 Jp = jx(A, B, p_c, p_p)
                 ptBp_t = 2.0 * torch.sum(Jp * Jp)
             else:
                 gain_t, act_t = gain_dense(pa.K, pa.q0, cams, pts, new_cams,
                                            new_pts, *grid, clamp=clamp,
                                            kq=pa.kq)
-                ptBp_t = jgram(cams, pts, p_c[None],
-                               F.pad(p_p.T, (0, Pp - P))[None])[0, 0]
+                ptBp_t = jgram(cams, pts, [p_c], [p_p])[0, 0]
             # the one host read of the try
             gain, act, gtp, ptBp, p_norm = torch.stack([
                 gain_t, act_t, _dot(g_c, g_p, p_c, p_p), ptBp_t, p_norm_t,

@@ -400,7 +400,7 @@ def test_linearize_stream_sums_are_deterministic(cuda):
         assert bool((one[i] == two[i]).all()), i
 
 
-@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
 def test_jgram_dense_kernel_matches_plain(cuda, n):
     from psba_tpu_torch.ops import linearize_dense as ld
     from psba_tpu_torch.ops import residual_dense as rd
@@ -423,6 +423,111 @@ def test_jgram_dense_kernel_matches_plain(cuda, n):
     G0 = rd.jgram_dense(*args, torch.as_tensor(dp, dtype=torch.float32,
                                                device=cuda))
     assert bool((G0 == G).all())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("C", [1, 9, 138])
+def test_jgram_dense_one_launch_matches_plain(cuda, C, n):
+    """The persistent grid with the in-launch sum, over C cameras (a ragged
+    camera chunk at 1 and 9) and P not a multiple of the 128-point tile:
+    G within 1e-4 of max |G| of the plain version, symmetric, one launch per
+    call, two calls bit-identical; garbage in the padded point lanes counts
+    for nothing; the sequence form (row-major [P, 3] parts and transposed
+    planar views) gives the stacked form's bits; a grid with no observed
+    cell gives exactly 0."""
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.ops import residual_dense as rd
+
+    K, q0, cams, pts, _du, _dv, vd = _dense_inputs(cuda, C, 333, seed=8)
+    P = pts.shape[0]
+    rng = np.random.default_rng(40 + n)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    dc = f(rng.standard_normal((n, C, 6)))
+    dp = f(rng.standard_normal((n, 3, ld.padded_points(P))))
+    args = (K, q0, cams, pts, vd)
+    before = rd.jgram_dense.launches
+    G = rd.jgram_dense(*args, dc, dp)
+    again = rd.jgram_dense(*args, dc, dp)
+    torch.cuda.synchronize()
+    assert rd.jgram_dense.launches == before + 2
+    ref = rd.jgram_dense_plain(*args, dc, dp)
+    assert G.shape == (n, n) and bool((G == G.T).all())
+    assert _rel(G, ref) < 1e-4
+    assert bool((again == G).all())
+    dp0 = dp.clone()
+    dp0[:, :, P:] = 0.0
+    assert bool((rd.jgram_dense(*args, dc, dp0) == G).all())
+    for parts in ([dp[a, :, :P].T for a in range(n)],
+                  [dp[a, :, :P].T.contiguous() for a in range(n)]):
+        seq = rd.jgram_dense(*args, list(dc.unbind()), parts)
+        assert bool((seq == G).all())
+    none = rd.jgram_dense(K, q0, cams, pts, torch.zeros_like(vd), dc, dp)
+    assert bool((none == 0).all())
+
+
+def _residual_inputs(cuda, C, O, seed):
+    """residual_l2 arguments over C cameras, each a copy (perturbed from a
+    seed) of one of the 13-camera synthetic ring's, and O observations
+    drawn from the ring's observations in their point order, each moved to
+    a random copy of its camera (so every projection is a real one)."""
+    from psba_tpu_torch.io import synthetic_problem
+
+    prob = synthetic_problem(n_cams=13, n_pts=700, seed=seed)
+    rng = np.random.default_rng(seed)
+    base = np.arange(C) % 13
+    cams = prob.cams[base] + np.concatenate(
+        [1e-3 * rng.standard_normal((C, 3)),
+         1e-2 * rng.standard_normal((C, 3))], axis=1)
+    pool = np.nonzero(prob.cam_idx < C)[0]
+    pick = np.sort(rng.choice(pool, O))
+    c = prob.cam_idx[pick]
+    cam = c + 13 * rng.integers(0, (C - 1 - c) // 13 + 1)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    i = lambda a: torch.as_tensor(a, dtype=torch.int32, device=cuda)
+    return (f(prob.K[base]), f(prob.q0[base]), f(cams), f(prob.pts),
+            f(prob.obs[pick]), i(cam), i(prob.pt_idx[pick]))
+
+
+# O = 1, under one block's share of 1,024, not a multiple of it; one
+# camera; and more cameras than a block's shared-memory table holds
+_RESIDUAL = [(13, 1), (13, 700), (13, 5_003), (1, 300), (5_000, 20_000)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C, O", _RESIDUAL)
+def test_residual_l2_fused_gain_matches_plain(cuda, C, O, masked):
+    """One launch per call, with and without ex_old: ex within 1e-4 of max
+    |ex| and l2 within 1e-5 of the plain version (as chip_smoke.py), the
+    gain within 1e-5 of sum |eo|^2 of error_l2_diff on the same CUDA
+    tensors, ex and l2 the same bits with and without ex_old, and two
+    calls bit-identical."""
+    from psba_tpu_torch.core.residual import error_l2_diff
+    from psba_tpu_torch.ops import linearize_stream as ls
+
+    args = _residual_inputs(cuda, C, O, seed=9)
+    if C == 5_000:
+        assert C > ls._residual_kernel()[1], "C must exceed the table"
+    valid = None
+    if masked:
+        valid = (torch.arange(O, device=cuda) < O - O // 3).to(torch.float32)
+    g = torch.Generator(device="cpu").manual_seed(C + O)
+    ex_old = (ls.residual_l2_plain(*args)[0]
+              + torch.randn((O, 2), generator=g).to(cuda))
+    before = ls.residual_l2.launches
+    ex, l2 = ls.residual_l2(*args, valid)
+    ex1, l2_1, gain1 = ls.residual_l2(*args, valid, ex_old=ex_old)
+    ex2, l2_2, gain2 = ls.residual_l2(*args, valid, ex_old=ex_old)
+    torch.cuda.synchronize()
+    assert ls.residual_l2.launches == before + 3
+    ex_p, l2_p = ls.residual_l2_plain(*args, valid)
+    assert ex.shape == (O, 2) and l2.shape == () and gain1.shape == ()
+    assert _rel(ex, ex_p) < 1e-4 and _rel(l2, l2_p) < 1e-5
+    ref = error_l2_diff(ex_old, ex1, None if valid is None else valid > 0)
+    eo2 = float((ex_old.double() ** 2).sum())
+    assert abs(float(gain1) - float(ref)) <= 1e-5 * eo2
+    for a, b in ((ex1, ex), (l2_1, l2), (ex2, ex1), (l2_2, l2_1),
+                 (gain2, gain1)):
+        assert bool((a == b).all())
 
 
 def test_default_solve_on_cuda_matches_cpu(cuda):

@@ -109,6 +109,67 @@ def test_residual_l2_matches_pallas(prob_synth, masked):
         np.testing.assert_allclose(float(l2), full - tail, rtol=1e-5)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_residual_l2_gain_matches_reference(prob_synth, masked):
+    """residual_l2 with ex_old (plain on the CPU) against the reference's
+    trial gain, psba_tpu.core.residual.error_l2_diff(ex_old, ex) with ex
+    from residual_l2_pallas in interpret mode, float32: the gain to 1e-5 of
+    sum |eo|^2 (the two ex differ by float32 rounding of O(1e3) px
+    projections), ex and l2 as without ex_old. Both are fed the same ex_old,
+    the reference's residual at a nearby state."""
+    from psba_tpu.core.residual import error_l2_diff as j_error_l2_diff
+
+    p = prob_synth
+    f32 = np.float32
+    old_cams, old_pts = _state(p, 11)
+    cams, pts = _state(p, 12)
+    valid = (np.arange(p.n_obs) < p.n_obs - 7) if masked else None
+    jv = None if valid is None else jnp.asarray(valid)
+    j = lambda a: jnp.asarray(a, f32)
+    jargs = (j(p.K), j(p.q0))
+    jidx = (jnp.asarray(p.obs, f32), jnp.asarray(p.cam_idx),
+            jnp.asarray(p.pt_idx), jv)
+    ex_old, _ = residual_l2_pallas(*jargs, j(old_cams), j(old_pts), *jidx)
+    ex_r, l2_r = residual_l2_pallas(*jargs, j(cams), j(pts), *jidx)
+    gain_r = j_error_l2_diff(ex_old, ex_r, valid=jv)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    ex, l2, gain = tls.residual_l2(
+        t(p.K.astype(f32)), t(p.q0.astype(f32)), t(cams), t(pts),
+        t(p.obs.astype(f32)), t(p.cam_idx.astype(np.int32)),
+        t(p.pt_idx.astype(np.int32)),
+        None if valid is None else t(valid.astype(f32)),
+        ex_old=t(np.array(ex_old)))
+    eo2 = float(np.sum(np.asarray(ex_old, np.float64) ** 2))
+    assert gain.shape == () and gain.dtype == torch.float32
+    assert abs(float(gain) - float(gain_r)) <= 1e-5 * eo2
+    np.testing.assert_allclose(ex.numpy(), np.asarray(ex_r), atol=1e-3)
+    np.testing.assert_allclose(float(l2), float(l2_r), rtol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_residual_l2_plain_gain_is_error_l2_diff(prob_synth, masked):
+    """The plain gain is the port's error_l2_diff(ex_old, ex) bit for bit
+    (without a mask the same operations; with one, the 0/1 mask as
+    error_l2_diff's boolean), so the CPU pair trajectories keep their
+    bits; ex and l2 are those of the call without ex_old."""
+    from psba_tpu_torch.core.residual import error_l2_diff
+
+    p = prob_synth
+    f32 = np.float32
+    cams, pts = _state(p, 13)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    args = (t(p.K.astype(f32)), t(p.q0.astype(f32)), t(cams), t(pts),
+            t(p.obs.astype(f32)), t(p.cam_idx.astype(np.int32)),
+            t(p.pt_idx.astype(np.int32)))
+    valid = (torch.arange(p.n_obs) < p.n_obs - 7) if masked else None
+    vf = None if valid is None else valid.to(torch.float32)
+    ex_old = tls.residual_l2(*args[:2], t(_state(p, 14)[0]), *args[3:])[0]
+    ex, l2 = tls.residual_l2(*args, vf)
+    ex2, l2_2, gain = tls.residual_l2(*args, vf, ex_old=ex_old)
+    assert torch.equal(ex2, ex) and torch.equal(l2_2, l2)
+    assert torch.equal(gain, error_l2_diff(ex_old, ex, valid))
+
+
 # ------------------------------------------------------------ indexed_sum
 
 def test_indexed_sum_matches_segment_sum():

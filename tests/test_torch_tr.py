@@ -272,7 +272,7 @@ def test_stream_tables_walk_every_observation(prob_mini_bal):
 
 # ----------------------------------------------------- kernel 4: J-gram
 
-@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
 def test_jgram_dense_matches_pallas(prob_synth, n):
     """jgram_dense (plain on the CPU) against jgram_dense_pallas, float32,
     to 1e-4 of the largest entry (the reference's gate,
@@ -298,6 +298,30 @@ def test_jgram_dense_matches_pallas(prob_synth, n):
     dp0[:, :, P:] = 0.0
     assert torch.equal(trd.jgram_dense(*args, t(dp0)), G)
     assert torch.equal(trd.jgram_dense(*args, t(dp0[:, :, :P].copy())), G)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_jgram_dense_sequence_form_is_the_stacked_form(prob_synth, n):
+    """The directions as sequences of [C, 6] and [P, 3] parts (contiguous,
+    or a transposed view of planar rows, as the TR loop has them) give the
+    stacked form's bits, the stacked point parts with garbage in their
+    padded lanes."""
+    p = prob_synth
+    _jpa, tpa = _both(p)
+    cams, pts = (torch.from_numpy(a) for a in _state(p, 20 + n))
+    C, P = p.n_cams, p.n_pts
+    rng = np.random.default_rng(30 + n)
+    dc = torch.from_numpy(rng.standard_normal((n, C, 6)).astype(np.float32))
+    dp = torch.from_numpy(rng.standard_normal(
+        (n, 3, tld.padded_points(P))).astype(np.float32))
+    args = (tpa.K, tpa.q0, cams, pts, tpa.valid_d)
+    G = trd.jgram_dense(*args, dc, dp)
+    rows = [dp[a, :, :P].T.contiguous() for a in range(n)]
+    views = [dp[a, :, :P].T for a in range(n)]
+    assert not views[0].is_contiguous()
+    for parts in (rows, views):
+        assert torch.equal(trd.jgram_dense(*args, list(dc.unbind()), parts),
+                           G)
 
 
 def test_jgram_dense_is_the_jmultiply_gram(prob_mini_bal):
