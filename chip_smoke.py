@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile    # also torch.profiler tables of three
                                        # LM and three TR iterations on the
-                                       # dense and the pair path, under
+                                       # dense path (float32 and float64)
+                                       # and the pair path, under
                                        # chiprun_out/
     python3 chip_smoke.py --cap        # also ms per LM iteration of the
                                        # dense and the pair encoding at
@@ -43,13 +44,32 @@ Phases, in order; any failure raises and the script exits nonzero:
      about 9 observations each), which solve(schur="auto") must put on the
      pair encoding by itself: LM only, then the default config, counters
      reset and read around each;
+  3d. the float64 path: the default float64 solve of the 138-camera problem
+     (the XLA form: cuBLAS DGEMM, cuSOLVER, torch ops), counters reset and
+     read around it (no kernel may launch), two runs with the same final
+     L2 bits, ms per LM / TR iteration, the peak device memory, and each
+     stage of a float64 dense LM try timed by CUDA events (the S DGEMM
+     among them);
+  3o. the float32 default solve of that problem with polish_iters=5: the
+     float32 part launches the kernels, "lm64" comes last, and the polish
+     ends at or below the float64 L2 where it starts;
+  3p. the covisibility-pair main path at Final-961's counts (below);
+  3x. three float64 LM iterations on final961_pairs (the XLA form of the
+     pair family): ms per iteration and peak device memory;
   3g. TR from the start on the 6-camera synthetic problem with an unobserved
      camera appended (the GMW bootstrap), on CUDA and on the CPU;
   4. tests/data/mini_bal.txt on CUDA and on the CPU (plain versions), with
      the LM-only and the default config, held together;
   4p. the same on the pair encoding (where two CUDA runs of a fixed budget
      must also give the same final_l2), and pairs against dense on CUDA;
-  5. a JSON line of the kernels, then, last, the device JSON line.
+  4d. float64 on mini_bal, both encodings, CUDA against CPU: LM rows at a
+     budget of 20 to 1e-9, then the default config, final L2 as in phase 4;
+  6. the CLI on the card: the 138-camera problem written as an SBA text
+     pair, `python -m psba_tpu_torch.cli` on it in float64 (the default)
+     and with --f32 --polish 3, each in a subprocess; the points file's
+     read time with the native and with the numpy reader;
+  5. a JSON line of the kernels and the paths, then, last, the device JSON
+     line.
 It imports nothing of JAX.
 """
 
@@ -70,6 +90,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 # first and its flops over the second.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# float64 on the tensor cores (DGEMM), same data sheet
+F64_TC_FLOPS_PER_S = 67e12
 # float32 operations per observed cell or observation, counted from
 # csrc/cell_model.cuh and each kernel's own arithmetic: residual and forward
 # model 86, Jacobian rows 211 (cell_linearize about 300 in all)
@@ -1059,6 +1081,89 @@ def main(argv) -> int:
         need(launches[k] > 0, f"kernel {k} was not launched on the default "
              "path")
 
+    # 3d. the float64 path: the default solve in float64 (the XLA form)
+    f64 = torch.float64
+    cfg64 = SolverConfig.for_dtype(f64, record_history=True)
+    psba_tpu_torch.solve(prob, cfg64._replace(max_iters=2), device=dev)
+    f64_runs = []
+    for _ in range(2):
+        reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = psba_tpu_torch.solve(prob, cfg64, device=dev)
+        f64_runs.append((r, read(), peak_gib(dev)))
+    res64, launches64, peak64 = f64_runs[0]
+    per64 = per_phase_iterations(res64)
+    ms64 = {ph: 1e3 * res64.phase_seconds[ph] / per64[ph] for ph in per64}
+    brk = f64_breakdown(prob, dev)
+    print(f"[3d] float64 default solve: {res64}; damping "
+          f"{res64.resolved_damping}\n[3d] phases {res64.phases}\n"
+          f"[3d] iterations per phase {per64}; ms per LM iteration "
+          f"{ms64.get('lm', float('nan')):.3f}, per TR iteration "
+          f"{ms64.get('tr', float('nan')):.3f}; peak device memory "
+          f"{peak64:.2f} / {f64_runs[1][2]:.2f} GiB\n"
+          f"[3d] launches {launches64}; spd_solve_xla calls "
+          f"{linalg.spd_solve_xla.calls}\n"
+          f"[3d] float64 dense LM try (ms, CUDA events): once per "
+          f"iteration {brk['once']} = {brk['once_ms']:.3f}; per try "
+          f"{brk['per_try']} = {brk['try_ms']:.3f}\n"
+          f"[3d] S DGEMM [{6 * prob.n_cams} x {3 * prob.n_pts}] x "
+          f"[{3 * prob.n_pts} x {6 * prob.n_cams}]: "
+          f"{brk['s_dgemm_ms']:.3f} ms a try, "
+          f"{brk['s_dgemm_tflops']:.1f} TFLOP/s, bound "
+          f"{brk['s_dgemm_bound_ms']:.3f} ms\n"
+          f"[3d] initial_error {res64.initial_error:.6e} final_error "
+          f"{res64.final_error:.6e} flag {res64.flag_name}; second run "
+          f"final_l2 {f64_runs[1][0].final_l2!r} vs {res64.final_l2!r}",
+          flush=True)
+    need(np.isfinite(res64.final_l2)
+         and res64.final_error < res64.initial_error,
+         "float64 path: error did not decrease")
+    need(res64.flag_name in ok_flags,
+         f"float64 path: abnormal stop {res64.flag_name}")
+    for r, got, _ in f64_runs:
+        need(all(v == 0 for v in got.values()),
+             f"float64 path launched a kernel: {got}")
+    need(f64_runs[1][0].final_l2 == res64.final_l2
+         and f64_runs[1][0].phases == res64.phases,
+         "float64 path: two CUDA runs give different final L2 bits")
+    need(res64.cams.dtype == np.float64 and np.isfinite(res64.cams).all()
+         and np.isfinite(res64.pts).all(),
+         "float64 path: output parameters malformed")
+
+    # 3o. the float32 default solve with the float64 polish
+    import tempfile
+
+    from psba_tpu_torch.solvers.types import OptState
+    from psba_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as ck:
+        reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res_o = psba_tpu_torch.solve(prob, cfg, dtype=f32, device=dev,
+                                     polish_iters=5, checkpoint_dir=ck,
+                                     checkpoint_every=0)
+        launches_o = read()
+        peak_o = peak_gib(dev)
+        n_main = res_o.phases[-2][1]
+        main = np.load(os.path.join(ck, f"ckpt_{n_main:05d}.npz"))
+        pa64 = ProblemArrays.from_problem(prob, dtype=f64, device=dev)
+        start64 = float(OptState.init(
+            pa64, torch.as_tensor(main["cams"], dtype=f64, device=dev),
+            torch.as_tensor(main["pts"], dtype=f64, device=dev)).ex_l2)
+        del pa64, main
+    print(f"[3o] float32 default + polish 5: {res_o}\n[3o] phases "
+          f"{res_o.phases}; phase seconds "
+          f"{ {k: round(v, 4) for k, v in res_o.phase_seconds.items()} }; "
+          f"peak device memory {peak_o:.2f} GiB\n[3o] launches "
+          f"{launches_o}\n[3o] polish: float64 L2 {start64!r} at its start "
+          f"-> {res_o.final_l2!r}", flush=True)
+    need(res_o.phases[-1][0] == "lm64" and res_o.iterations <= n_main + 5,
+         f"polish: phases {res_o.phases}")
+    for k in lm_path:
+        need(launches_o[k] > 0, f"polish run: kernel {k} not launched in "
+             "the float32 part")
+    need(res_o.final_l2 <= start64, "polish: final L2 above its start")
+
     # ---- phase 3p: the covisibility-pair path at final961_pairs
     need(big.n_cams * big.n_pts > DENSE_MAX_ENTRIES,
          "final961_pairs is not above the dense cap")
@@ -1103,8 +1208,24 @@ def main(argv) -> int:
         need(oversized > 0, f"pair path, {label}: no oversized spd_solve")
     need("tr" in pair_runs["default"]["per"],
          "pair path, default: never entered TR")
+    # ---- phase 3x: float64 LM on final961_pairs (the XLA form)
+    c3x = SolverConfig.for_dtype(f64, max_iters=3, lm_switch_count=10_000)
+    reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r3x = psba_tpu_torch.solve(big, c3x, device=dev)
+    launches3x, peak3x = read(), peak_gib(dev)
+    ms3x = 1e3 * r3x.phase_seconds["lm"] / max(r3x.iterations, 1)
+    print(f"[3x] final961_pairs, float64 LM x3: {r3x}; {ms3x:.3f} ms per "
+          f"LM iteration (the first included); peak device memory "
+          f"{peak3x:.2f} GiB; launches {launches3x}", flush=True)
+    need(r3x.iterations == 3 and r3x.final_l2 < r3x.initial_l2,
+         "float64 pairs: three LM iterations did not descend")
+    need(all(v == 0 for v in launches3x.values()),
+         f"float64 pairs launched a kernel: {launches3x}")
     if "--profile" in argv:
         profile(prob, cfg, dev, "dense")
+        profile(prob, cfg64, dev, "dense", f64=True)
         profile(big, cfg, dev, "pairs")
     del big
     torch.cuda.empty_cache()
@@ -1194,6 +1315,38 @@ def main(argv) -> int:
     need(rel <= 1e-3 and r_p.phases == r_d.phases,
          "mini_bal LM 20: pairs and dense disagree on CUDA")
 
+    # ---- phase 4d: float64 on mini_bal, CUDA against CPU
+    c64_lm = SolverConfig.for_dtype(f64, lm_switch_count=10_000,
+                                    max_iters=20, record_history=True)
+    for schur in ("dense", "pairs"):
+        for c, label in ((c64_lm, "LM 20"), (cfg64, "default full")):
+            r_gpu = psba_tpu_torch.solve(mini, c, device=dev, schur=schur)
+            r_cpu = psba_tpu_torch.solve(mini, c, device="cpu", schur=schur)
+            rel = abs(r_gpu.final_l2 - r_cpu.final_l2) / r_cpu.final_l2
+            print(f"[4d] mini_bal float64, schur={schur}, {label}\n"
+                  f"[4d]   cuda: {r_gpu} {r_gpu.phases}\n"
+                  f"[4d]   cpu:  {r_cpu} {r_cpu.phases}\n"
+                  f"[4d]   final_l2 rel diff {rel:.3e} (tolerance 1e-3)",
+                  flush=True)
+            need(rel <= 1e-3, f"float64 {schur}, {label}: CUDA and CPU "
+                 "final_l2 disagree")
+            if label == "LM 20":
+                # every row of a fixed budget (near the optimum rho is a
+                # ratio of rounding errors, so the full runs are not held
+                # row by row)
+                h_gap = float(np.max(np.abs(
+                    r_gpu.history[:, 1:4] - r_cpu.history[:, 1:4])
+                    / np.abs(r_cpu.history[:, 1:4])))
+                print(f"[4d]   LM rows max rel diff {h_gap:.3e} (tolerance "
+                      "1e-9)", flush=True)
+                need(h_gap <= 1e-9 and r_gpu.phases == r_cpu.phases,
+                     f"float64 {schur}, LM 20: LM rows part ({h_gap})")
+            need(r_gpu.flag_name in ok_flags,
+                 f"float64 {schur}, {label}: abnormal stop")
+
+    # ---- phase 6: the CLI on the card
+    cli = cli_phase(prob, res64)
+
     # ---- phase 5: output
     src = {
         "linearize_dense": ("psba_tpu_torch/csrc/linearize_dense.cu",
@@ -1252,11 +1405,165 @@ def main(argv) -> int:
                     "iterations": res_lm.iterations,
                     "final_error": res_lm.final_error},
         "final961_pairs": pairs_line,
+        "float64": {
+            "dense_default": {
+                "lm_iter_ms": ms64.get("lm"), "tr_iter_ms": ms64.get("tr"),
+                "iterations": per64, "phases": res64.phases,
+                "peak_gib": peak64, "initial_error": res64.initial_error,
+                "final_error": res64.final_error, "breakdown_ms": brk},
+            "polish5": {"phases": res_o.phases, "peak_gib": peak_o,
+                        "phase_seconds": res_o.phase_seconds,
+                        "start_l2": start64, "final_l2": res_o.final_l2},
+            "final961_pairs_lm3": {"lm_iter_ms": ms3x, "peak_gib": peak3x,
+                                   "final_error": r3x.final_error},
+            "cli": cli,
+        },
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def cli_phase(prob, res64) -> dict:
+    """Phase 6: `prob` written as an SBA text pair to a temporary directory;
+    its points file read by the native and by the numpy reader (host
+    seconds, the arrays equal); then `python -m psba_tpu_torch.cli` on it,
+    float64 (the default) and --f32 --polish 3, each in a subprocess with
+    --json. The float64 run must land within 1e-4 of phase 3d's final error
+    (the text keeps nine decimals)."""
+    import tempfile
+
+    import numpy as np
+
+    from psba_tpu_torch.io import native, sba_text
+    from psba_tpu_torch.io.bal import write_sba_text
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        cams, pts = os.path.join(d, "cams.txt"), os.path.join(d, "pts.txt")
+        t0 = time.perf_counter()
+        write_sba_text(prob, cams, pts)
+        out["write_s"] = time.perf_counter() - t0
+        need(native.available(), f"native reader: {native.reader()}")
+        t0 = time.perf_counter()
+        a = native.read_pts(pts, prob.n_cams)
+        out["read_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = sba_text.read_pts_numpy(pts, prob.n_cams)
+        out["read_numpy_s"] = time.perf_counter() - t0
+        need(all((x is None and y is None) or np.array_equal(x, y)
+                 for x, y in zip(a, b)), "native and numpy readers differ")
+        print(f"[6] {os.path.getsize(pts) / 2**20:.1f} MiB points file "
+              f"written in {out['write_s']:.2f} s; read native "
+              f"{out['read_native_s']:.3f} s, numpy "
+              f"{out['read_numpy_s']:.3f} s", flush=True)
+        env = dict(os.environ, PYTHONPATH=REPO)
+        for label, extra in (("float64", ()),
+                             ("f32_polish3", ("--f32", "--polish", "3"))):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "psba_tpu_torch.cli", "--cams", cams,
+                 "--pts", pts, "--json", *extra],
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=600)
+            secs = time.perf_counter() - t0
+            need(proc.returncode == 0,
+                 f"CLI {label} failed:\n{proc.stderr[-4000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            got["process_s"] = secs
+            out[label] = got
+            print(f"[6] CLI {label}: {proc.stderr.strip().splitlines()}\n"
+                  f"[6]   {json.dumps(got)}", flush=True)
+            need(got["final_error"] < got["initial_error"]
+                 and got["flag"] in ("DP_NO_CHANGE", "ERR_SMALL_ENOUGH",
+                                     "CONTINUE"),
+                 f"CLI {label}: error did not decrease / abnormal stop")
+        need(out["f32_polish3"]["phases"][-1][0] == "lm64",
+             "CLI --f32 --polish 3: lm64 is not the last phase")
+        rel = abs(out["float64"]["final_error"] - res64.final_error) / (
+            res64.final_error)
+        print(f"[6] CLI float64 final_error vs phase 3d: rel {rel:.3e} "
+              "(tolerance 1e-4)", flush=True)
+        need(rel <= 1e-4, "CLI float64 run and phase 3d disagree")
+    return out
+
+
+def peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def f64_breakdown(prob, dev) -> dict:
+    """CUDA-event ms (median of 10 after warm-up) of each stage of one
+    float64 XLA-form LM iteration on the dense encoding at `prob`'s shape,
+    from its starting state: once per iteration the Jacobians,
+    assemble_blocks and stack_blocks (the gather); per try the damping with
+    inv3x3_planar, schur_S_dense (the ZY planes, then the DGEMM, also timed
+    alone, with its bound at the float64 tensor-core rate),
+    reduced_rhs_dense, spd_solve_xla (cholesky_ex + cholesky_solve),
+    back_substitute_dense and the trial residual with its gain."""
+    import torch
+
+    from psba_tpu_torch.core import hessian as th
+    from psba_tpu_torch.core import linalg as tl
+    from psba_tpu_torch.core import schur as ts
+    from psba_tpu_torch.core.jacobian import jacobians
+    from psba_tpu_torch.core.residual import error_l2_diff, residuals
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    f64 = torch.float64
+    pa = ProblemArrays.from_problem(prob, dtype=f64, device=dev)
+    cams = torch.as_tensor(prob.cams, dtype=f64, device=dev)
+    pts = torch.as_tensor(prob.pts, dtype=f64, device=dev)
+    C, P = prob.n_cams, prob.n_pts
+    idx = (pa.cam_idx, pa.pt_idx)
+    ex = residuals(pa.K, pa.q0, cams, pts, pa.obs, *idx)
+    A, B = jacobians(pa.K, pa.q0, cams, pts, *idx)
+    U, V, W, ga, gb = th.assemble_blocks(A, B, ex, *idx, C, P)
+    ZW, gbp = ts.stack_blocks(W, pa.blk_idx), ts.planar_gb(gb)
+    mu = 1e-3 * float(th.max_diag(U, V))
+    U_d, V_d = th.damp_uv(U, V, mu)
+    Vp, _ok = ts.inv3x3_planar(V_d)
+    S, ZY = ts.schur_S_dense(U_d, ZW, Vp)
+    ea = ts.reduced_rhs_dense(ga, gbp, ZY)
+    dpa, ok = tl.spd_solve_xla(S, ea.reshape(-1))
+    need(bool(ok), "float64 breakdown: cholesky_ex failed")
+    dpa = dpa.reshape(C, 6)
+    _ebp, dpb = ts.back_substitute_dense(gbp, ZW, Vp, dpa)
+
+    def trial():
+        new = residuals(pa.K, pa.q0, cams + dpa, pts + dpb, pa.obs, *idx)
+        return error_l2_diff(ex, new)
+
+    once = {
+        "jacobians": lambda: jacobians(pa.K, pa.q0, cams, pts, *idx),
+        "assemble_blocks": lambda: th.assemble_blocks(A, B, ex, *idx, C, P),
+        "stack_blocks": lambda: ts.stack_blocks(W, pa.blk_idx),
+    }
+    per_try = {
+        "damp_inv3x3_planar": lambda: ts.inv3x3_planar(
+            th.damp_uv(U, V, mu)[1]),
+        "schur_S_dense": lambda: ts.schur_S_dense(U_d, ZW, Vp),
+        "reduced_rhs_dense": lambda: ts.reduced_rhs_dense(ga, gbp, ZY),
+        "spd_solve_xla": lambda: tl.spd_solve_xla(S, ea.reshape(-1)),
+        "back_substitute_dense": lambda: ts.back_substitute_dense(
+            gbp, ZW, Vp, dpa),
+        "trial_residual_gain": trial,
+    }
+    out = {"once": {k: cuda_ms(f) for k, f in once.items()},
+           "per_try": {k: cuda_ms(f) for k, f in per_try.items()}}
+    out["s_dgemm_ms"] = cuda_ms(lambda: torch.matmul(ZY, ZW.T))
+    n, k = 6 * C, 3 * P
+    flops = 2.0 * n * n * k
+    out["s_dgemm_tflops"] = flops / out["s_dgemm_ms"] / 1e9
+    out["s_dgemm_bound_ms"] = max(1e3 * flops / F64_TC_FLOPS_PER_S,
+                                  1e3 * 8.0 * (2 * n * k + n * n)
+                                  / HBM_BYTES_PER_S)
+    out["once_ms"] = sum(out["once"].values())
+    out["try_ms"] = sum(out["per_try"].values())
+    return out
 
 
 def cap_measurement(cfg_lm, dev) -> None:
@@ -1357,13 +1664,14 @@ def spread_measurement(mini, cfg, dev, runs: int = 100) -> None:
         json.dump(out, f)
 
 
-def profile(prob, cfg, dev, schur) -> None:
+def profile(prob, cfg, dev, schur, f64=False) -> None:
     """torch.profiler tables of three LM iterations (lm_run alone) and three
     TR iterations (tr_run alone, entered with lambda = 1 so the table shows
     a steady TR iteration rather than the GMW bootstrap) on the `schur`
-    encoding, each after a warm-up: kernel time by name (written to
-    chiprun_out/profile_<schur>_<lm|tr>3.txt) and the device's busy share
-    (printed)."""
+    encoding, in float32 (the kernel path) or with `f64` in float64 (the
+    XLA form), each after a warm-up: kernel time by name (written to
+    chiprun_out/profile_<schur>[_f64]_<lm|tr>3.txt) and the device's busy
+    share (printed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1376,13 +1684,14 @@ def profile(prob, cfg, dev, schur) -> None:
     )
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    f32 = torch.float32
-    pa = ProblemArrays.from_problem(prob, dtype=f32, device=dev, schur=schur)
-    cams = torch.as_tensor(prob.cams, dtype=f32, device=dev)
-    pts = torch.as_tensor(prob.pts, dtype=f32, device=dev)
+    dt = torch.float64 if f64 else torch.float32
+    tag = f"{schur}_f64" if f64 else schur
+    pa = ProblemArrays.from_problem(prob, dtype=dt, device=dev, schur=schur)
+    cams = torch.as_tensor(prob.cams, dtype=dt, device=dev)
+    pts = torch.as_tensor(prob.pts, dtype=dt, device=dev)
     c3 = resolve_damping(cfg._replace(max_iters=3, lm_switch_count=10_000),
                          pa, cams, pts)
-    aux = torch.tensor([cfg.init_delta, 1.0, 1.0, 2.0, 0.0, 0.0], dtype=f32,
+    aux = torch.tensor([cfg.init_delta, 1.0, 1.0, 2.0, 0.0, 0.0], dtype=dt,
                        device=dev)
 
     def lm():
@@ -1413,11 +1722,11 @@ def profile(prob, cfg, dev, schur) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.is_user_annotation
         ) / 1e3
-        summary = (f"[profile] {schur}: OptState.init + {name}_run, "
+        summary = (f"[profile] {tag}: OptState.init + {name}_run, "
                    f"{out.itno} iterations: wall {wall_ms:.3f} ms (profiler "
                    f"off), device busy {busy:.3f} ms (profiler on), idle "
                    f"share {1 - busy / wall_ms:.3f}")
-        path = os.path.join(OUT_DIR, f"profile_{schur}_{name}3.txt")
+        path = os.path.join(OUT_DIR, f"profile_{tag}_{name}3.txt")
         with open(path, "w") as f:
             f.write(summary + "\n" + table)
         print(f"{summary}; table in {os.path.relpath(path, REPO)}",

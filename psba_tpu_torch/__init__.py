@@ -5,22 +5,27 @@ device and dtype:
 
   constants  solver constants and iteration flags
   problem    BAProblem, the host-side problem container (numpy)
-  io/        SBA text, BAL and synthetic problem readers (numpy)
-  utils/     phase timing and checkpointing
+  io/        SBA text, BAL and synthetic problem readers: the native C++
+             parser (native/loader.cpp, built at first use by io/native.py)
+             or numpy
+  datasets   the registry of the reference project's datasets
+  cli        `python -m psba_tpu_torch.cli`, float64 by default
+  utils/     phase timing, checkpointing, NaN checks and block dumps
   models/    quaternion and pinhole camera models
-  core/      residual, analytic Jacobian and jmultiply, the Schur reduction
-             in both encodings (dense3 on the [C, P] grid, and the
-             covisibility pairs above the dense cap), SPD solve, the GMW
-             modified Cholesky
+  core/      residual, analytic Jacobian and jmultiply, the XLA-form block
+             assembly, the Schur reduction in both encodings (dense3 on the
+             [C, P] grid, the dense XLA form, and the covisibility pairs
+             above the dense cap), SPD solve, the GMW modified Cholesky
   ops/       hand-written Hopper kernels (csrc/*.cu, built at first use by
              ops/_build.py), each beside its plain PyTorch version
   solvers/   SolverConfig / ProblemArrays / OptState, the LM and TR loops
-             on either encoding, and the hybrid `solve` controller, whose
-             schur="auto" picks the encoding
+             on either encoding and either path (the kernels in float32,
+             the XLA form in float64), and the hybrid `solve` controller
+             with the float64 polish
   convert    carry problem and state tensors across from psba_tpu
 
-`solve` runs on the CUDA device unless the caller passes device="cpu". This
-package imports neither jax nor any module of psba_tpu.
+`solve` and the CLI run on the CUDA device unless the caller asks for the
+CPU. This package imports neither jax nor any module of psba_tpu.
 """
 
 from psba_tpu_torch.problem import BAProblem

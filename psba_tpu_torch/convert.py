@@ -36,16 +36,20 @@ def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
     point arrays given as numpy (a mapping or an object with the fields
     K, q0, obs, cam_idx, pt_idx and one encoding: the dense tables obs_du,
     obs_dv, valid_d, or the pair list pair_o1, pair_o2, pair_bucket; the
-    reference builds only the one it solves with).
+    reference builds only the one it solves with). A dense blk_idx comes
+    along where present (the port's XLA form needs it).
 
     Returns (ProblemArrays, cams [C, 6], pts [P, 3]) on `device`, floating
-    fields in `dtype` (default: the dtype of cams_np)."""
+    fields in `dtype` (default: the dtype of cams_np), with the stream
+    tables of the kernel path."""
     get = _getter(pa_np)
     dt = torch_dtype(np.asarray(cams_np).dtype if dtype is None else dtype)
     enc = [k for k in _DENSE + _PAIRS if _present(get(k))]
     if sorted(enc) not in (sorted(_DENSE), sorted(_PAIRS)):
         raise ValueError(f"from_reference: need the three dense tables or "
                          f"the three pair fields, got {enc}")
+    if enc[0] in _DENSE and _present(get("blk_idx")):
+        enc.append("blk_idx")
     out = {}
     for k in _FIELDS + tuple(enc):
         if not _present(get(k)):

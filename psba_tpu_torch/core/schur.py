@@ -1,6 +1,6 @@
 """Schur-complement reduction of the camera system (PyTorch counterpart
-of psba_tpu.core.schur): the dense3 family and the covisibility-pair
-family.
+of psba_tpu.core.schur): the dense3 family, the dense family of the XLA
+form and the covisibility-pair family.
 
 dense3. Everything per point is planar: V blocks are [3, 3, Pp] and the
 stacked off-diagonal factor comes as three [6C, Pp] planes ZWk[6c+i, p] =
@@ -10,6 +10,16 @@ W_(c,p)[i, k] (ops.linearize_dense). With that layout
   S      = blockdiag(U) - sum_j ZY_j @ ZW_j^T      [6C, 6C]
   ea     = ga - sum_j ZY_j @ gb_j                  [C, 6]
   eb_j   = gb_j - ZW_j^T dpa;  dpb_k = sum_j Vinv[j, k] eb_j
+
+dense, XLA form (the float64 path and backend="xla"). The per-observation
+W_o [O, 6, 3] of core.hessian.assemble_blocks are stacked once per
+linearization into the planar ZW [6C, 3P] (stack_blocks: ZW[6c+i, kP+p] =
+W_(c,p)[i, k], zero where unseen), V blocks are inverted to [3, 3, P]
+(inv3x3_planar), and
+
+  ZY[:, jP+p] = sum_k ZW[:, kP+p] Vinv[k, j, p]     (nine broadcast FMAs)
+  S  = blockdiag(U) - ZY @ ZW^T;  ea = ga - ZY @ gbp
+  ebp = gbp - ZW^T dpa;  dpb_(p, j) = sum_k Vinv[k, j, p] eb_(k, p)
 
 pairs. Per-observation blocks W_o [O, 6, 3] (ops.linearize_stream) and the
 static covisibility pair list of problem.build_covis_pairs:
@@ -25,7 +35,8 @@ one bucket sum (ops.reduce.indexed_sum, in a fixed order on the card).
 The products are plain matrix products (cuBLAS on the card), pinned to
 true float32: TF32 would keep about three decimal digits of S, which caps
 how far the float32 path converges (the reference pins Precision.HIGHEST
-for the same reason).
+for the same reason). The dense XLA family does not pin: TF32 touches
+float32 products only, and in float64 its products are DGEMM and gemv.
 """
 
 from __future__ import annotations
@@ -219,6 +230,73 @@ def back_substitute_dense3(gbp: torch.Tensor, ZW3, Vinv: torch.Tensor,
         ],
         dim=0,
     )
+
+
+def inv3x3_planar(V: torch.Tensor):
+    """inv3x3_planar3 on [P, 3, 3] blocks, stacked as [3, 3, P]: the same
+    cofactor inverse, power-of-two block scale and pivoted fallback, read
+    from the upper triangle (V symmetric). Returns (Vinv [3, 3, P], ok)."""
+    return inv3x3_planar3(V.permute(1, 2, 0))
+
+
+def stack_blocks(W: torch.Tensor, blk_idx: torch.Tensor) -> torch.Tensor:
+    """W [O, 6, 3] -> planar ZW [6C, 3P] with ZW[6c+i, kP+p] = W_o[i, k]
+    for the observation o of point p in camera c, 0 where unseen: one row
+    gather by blk_idx [C, P] (n_obs marks an unseen cell and picks the
+    appended zero row)."""
+    O = W.shape[0]
+    C, P = blk_idx.shape
+    W_pad = torch.cat([W.reshape(O, 18), W.new_zeros((1, 18))], dim=0)
+    G = W_pad.index_select(0, blk_idx.reshape(-1))         # [C*P, 18]
+    # [C, P, 6, 3] -> [C, 6, 3, P]: rows 6c+i, columns kP+p
+    return G.reshape(C, P, 6, 3).permute(0, 2, 3, 1).reshape(6 * C, 3 * P)
+
+
+def schur_S_dense(U: torch.Tensor, ZW: torch.Tensor, Vp: torch.Tensor):
+    """S = blockdiag(U) - ZY @ ZW^T with ZY[:, jP+p] = sum_k ZW[:, kP+p]
+    Vp[k, j, p]. U [C, 6, 6] must already be damped; Vp is the planar
+    inverse [3, 3, P] (inv3x3_planar). Returns (S [6C, 6C], ZY [6C, 3P]),
+    ZY reused by reduced_rhs_dense."""
+    R = ZW.shape[0]
+    C, P = R // 6, ZW.shape[1] // 3
+    Zk = ZW.reshape(R, 3, P)
+    ZY = torch.cat([
+        Zk[:, 0] * Vp[0, j][None] + Zk[:, 1] * Vp[1, j][None]
+        + Zk[:, 2] * Vp[2, j][None]
+        for j in range(3)
+    ], dim=1)
+    # no _pin_fp32_matmul here: TF32 concerns float32 products only, and
+    # in float64 this product is DGEMM
+    S = (-torch.matmul(ZY, ZW.T)).reshape(C, 6, C, 6)
+    S.diagonal(dim1=0, dim2=2).add_(U.permute(1, 2, 0))
+    return S.reshape(6 * C, 6 * C), ZY
+
+
+def reduced_rhs_dense(ga: torch.Tensor, gbp: torch.Tensor,
+                      ZY: torch.Tensor) -> torch.Tensor:
+    """ea = ga - ZY @ gbp; gbp is the planar [3P] point vector
+    (planar_gb). Returns [C, 6]."""
+    return ga - torch.matmul(ZY, gbp).reshape(-1, 6)
+
+
+def planar_gb(gb: torch.Tensor) -> torch.Tensor:
+    """[P, 3] point vector -> planar [3P] (index kP+p), the column layout
+    of stack_blocks."""
+    return gb.T.reshape(-1)
+
+
+def back_substitute_dense(gbp: torch.Tensor, ZW: torch.Tensor,
+                          Vp: torch.Tensor, dpa: torch.Tensor):
+    """ebp = gbp - ZW^T dpa;  dpb_(p, j) = sum_k Vp[k, j, p] eb_(k, p).
+    Returns (ebp [3P] planar, dpb [P, 3])."""
+    P = ZW.shape[1] // 3
+    ebp = gbp - torch.matmul(dpa.reshape(-1), ZW)
+    Ek = ebp.reshape(3, P)
+    dpb = torch.stack([
+        Vp[0, j] * Ek[0] + Vp[1, j] * Ek[1] + Vp[2, j] * Ek[2]
+        for j in range(3)
+    ], dim=1)
+    return ebp, dpb
 
 
 def inv3x3(V: torch.Tensor):

@@ -1,4 +1,6 @@
-"""Problem I/O: SBA text formats, BAL conversion, synthetic generation."""
+"""Problem I/O: SBA text formats, BAL conversion, synthetic generation.
+Text is parsed by the native C++ reader (io.native) where it is built or
+can be built, by numpy otherwise."""
 
 from psba_tpu_torch.io.sba_text import load_problem, read_cams, read_pts
 from psba_tpu_torch.io.bal import read_bal, bal_to_problem

@@ -42,8 +42,17 @@ def read_bal(path: str, dtype=np.float64):
     """Parse a raw BAL file.
 
     Returns (cam_params [C,9], pts [P,3], obs [O,2], cam_idx, pt_idx).
-    NumPy parser only: the native C++ reader of the JAX package is not
-    part of this port yet."""
+    The native C++ parser (io.native) reads the file where it is built or
+    can be built; otherwise read_bal_numpy, with the same result."""
+    from psba_tpu_torch.io import native
+
+    if native.available():
+        return native.read_bal(path, dtype=dtype)
+    return read_bal_numpy(path, dtype=dtype)
+
+
+def read_bal_numpy(path: str, dtype=np.float64):
+    """read_bal's numpy parser."""
     with open(path, "r") as f:
         data = np.fromiter(f.read().split(), dtype=np.float64)
     C, P, O = int(data[0]), int(data[1]), int(data[2])

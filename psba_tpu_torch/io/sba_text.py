@@ -85,8 +85,19 @@ def read_pts(path: str, n_cams: int, dtype=np.float64):
 
     Returns (pts [P,3], obs [O,2], cam_idx [O], pt_idx [O], cov or None).
     Observations are emitted in file order: sorted by point, with each
-    point's cameras in the order listed.
+    point's cameras in the order listed. The native C++ parser
+    (io.native) reads the file where it is built or can be built;
+    otherwise read_pts_numpy, with the same result.
     """
+    from psba_tpu_torch.io import native
+
+    if native.available():
+        return native.read_pts(path, n_cams, dtype)
+    return read_pts_numpy(path, n_cams, dtype)
+
+
+def read_pts_numpy(path: str, n_cams: int, dtype=np.float64):
+    """read_pts' numpy parser."""
     pts, obs, cam_idx, pt_idx, covs = [], [], [], [], []
     have_cov = None  # None until detected: 0 none, 3 tri, 4 full
     for ptno, s in enumerate(_data_lines(path)):

@@ -9,8 +9,8 @@ that is not finite).
 one thread-block cluster whose CTAs share each 32-column panel step, with
 the zeroing of x and the ok flag done in the kernel, so a call is one
 launch. CPU tensors run `spd_solve_plain` (torch.linalg.cholesky_ex +
-cholesky_solve). Callers with n > MAX_N go through core.linalg.spd_solve,
-which sends them to the plain version explicitly.
+cholesky_solve). core.linalg.spd_solve sends float32 systems with n <=
+MAX_N here and every other system (float64, n > MAX_N) to its XLA form.
 """
 
 from __future__ import annotations

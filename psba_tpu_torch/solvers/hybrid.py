@@ -1,14 +1,22 @@
 """Hybrid LM <-> TR controller (PyTorch counterpart of
 psba_tpu.solvers.hybrid).
 
-`solve` picks the Schur encoding (dense3, or the covisibility pairs above
-DENSE_MAX_ENTRIES cells or on request), runs damping resolution and
-OptState.init, then alternates the LM phase (solvers.lm) and the TR phase
-(solvers.tr) until either returns a flag other than the switch requests.
-Each switch starts the new phase with fresh phase scalars, as the reference
-calls levmar() / trust_region() afresh. Checkpoint / resume covers both
-phases. The float64 polish raises NotImplementedError naming its ROADMAP
-item.
+`solve` picks the Schur encoding (dense, or the covisibility pairs above
+DENSE_MAX_ENTRIES cells or on request) and the path (SolverConfig.backend:
+by default the kernel path in float32, the XLA form in float64), runs
+damping resolution and OptState.init, then alternates the LM phase
+(solvers.lm) and the TR phase (solvers.tr) until either returns a flag
+other than the switch requests. Each switch starts the new phase with fresh
+phase scalars, as the reference calls levmar() / trust_region() afresh.
+
+`polish_iters` > 0 appends the float64 polish after a run in another
+dtype: phase "lm64", LM in the XLA form on the same device (on CUDA after a
+float32 run that launched the kernels), with lm_switch_count 10,000, damping
+resolved again in float64 and the budget polish_target = the main run's
+iterations + polish_iters. Checkpoint / resume covers all three phases; an
+"lm64" checkpoint carries polish_target, and a resume into it skips the
+main run. With utils.debug's NaN checks on, every phase and chunk boundary
+reads isfinite over the parameters and ex_l2.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from psba_tpu_torch.solvers.types import (
     torch_dtype,
 )
 from psba_tpu_torch.utils import checkpoint as ckpt
+from psba_tpu_torch.utils.debug import check_finite
 from psba_tpu_torch.utils.timing import PhaseTimers
 
 
@@ -108,11 +117,15 @@ def solve(
     CUDA device; pass device="cpu" for the plain PyTorch versions).
 
     `dtype` (torch or numpy) casts the problem; default keeps its own.
-    On a CUDA device the hand-written kernels need float32. `start` is the
-    first phase, "lm" or "tr". `checkpoint_dir` enables checkpointing with
+    With the default backend a float32 solve takes the kernel path (the
+    hand-written kernels on CUDA) and a float64 solve the XLA form (torch
+    ops: cuBLAS DGEMM and cuSOLVER on the card). `start` is the first
+    phase, "lm" or "tr". `checkpoint_dir` enables checkpointing with
     resume from the newest checkpoint; `checkpoint_every` > 0 also cuts each
     phase into chunks of that many iterations and saves the phase scalars at
-    each boundary, so a resume is exact mid-phase. `schur` picks the
+    each boundary, so a resume is exact mid-phase. `polish_iters` > 0
+    appends that many float64 LM iterations after a run in another dtype
+    (phase "lm64", see the module docstring). `schur` picks the
     encoding of the reduced camera system: "dense", "pairs" (the
     covisibility pair list), or "auto" (dense up to
     solvers.types.DENSE_MAX_ENTRIES camera x point cells, pairs above).
@@ -121,21 +134,12 @@ def solve(
     device = _device(device)
     if start not in ("lm", "tr"):
         raise ValueError(f"start={start!r}: 'lm' or 'tr'")
-    if polish_iters > 0:
-        raise NotImplementedError(
-            "polish_iters > 0: the float64 polish needs the XLA-form dense "
-            "path, not ported yet (ROADMAP Queue 1 item 11)"
-        )
-    if device.type == "cuda" and dt != torch.float32:
-        raise NotImplementedError(
-            f"{dt} on CUDA: the kernels are float32; the float64 dense path "
-            "is not ported yet (ROADMAP Queue 1 item 11)"
-        )
     cfg = config or SolverConfig.for_dtype(dt)
     point_order = "natural"
     pa = ProblemArrays.from_problem(problem, dtype=dt, device=device,
-                                    schur=schur)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+                                    schur=schur, backend=cfg.backend)
+    as_t = lambda a, d=dt: torch.as_tensor(np.asarray(a), dtype=d,
+                                           device=device)
     cams, pts = as_t(problem.cams), as_t(problem.pts)
     cfg = resolve_damping(cfg, pa, cams, pts)
 
@@ -143,6 +147,8 @@ def solve(
     phase = start
     resume_itno = 0
     resume_aux = None
+    polish_target = None
+    resume64 = None
     if checkpoint_dir:
         restored = ckpt.load_latest(checkpoint_dir)
         if restored is not None:
@@ -157,25 +163,27 @@ def solve(
                     "original settings"
                 )
             phase = meta.get("phase", start)
-            if phase not in ("lm", "tr"):
-                raise NotImplementedError(
-                    f"resume into phase {phase!r}: the float64 polish is "
-                    "not ported yet (ROADMAP Queue 1 item 11)"
-                )
             cams, pts = as_t(r_cams), as_t(r_pts)
             resume_itno = int(meta.get("itno", 0))
             resume_aux = meta.get("aux")
+            if meta.get("polish_target") is not None:
+                polish_target = int(meta["polish_target"])
+            if phase == "lm64":
+                # the polish resumes from the checkpoint's float64 values
+                resume64 = (r_cams, r_pts)
 
     state = OptState.init(pa, cams, pts, clamp=cfg.clamp_quat)
     state.itno = resume_itno
-    if resume_aux is not None:
+    if resume_aux is not None and phase != "lm64":
         state.aux = torch.as_tensor(resume_aux, dtype=dt, device=device)
     initial_l2 = float(state.ex_l2)
+    check_finite("init", cams=state.cams, pts=state.pts, ex_l2=state.ex_l2)
 
     timers = PhaseTimers()
     t0 = time.perf_counter()
     phases = []
-    while True:
+    flag = state.flag
+    while phase != "lm64":
         if chunk and state.aux is None:
             state.aux = (lm_fresh_aux(dt, device) if phase == "lm"
                          else tr_fresh_aux(cfg, dt, device))
@@ -184,6 +192,8 @@ def solve(
             cap = min(state.itno + chunk, cfg.max_iters) if chunk else None
             state = runner(pa, state, cfg, iter_cap=cap)
         flag = state.flag
+        check_finite(phase, cams=state.cams, pts=state.pts,
+                     ex_l2=state.ex_l2)
         # chunk boundary: budget left and no phase-ending flag
         mid_phase = (
             chunk > 0
@@ -214,6 +224,56 @@ def solve(
             # a new phase starts with fresh scalars
             state.aux = None
         phase = next_phase
+
+    if polish_iters > 0 and dt != torch.float64:
+        f64 = torch.float64
+        if polish_target is None:
+            polish_target = state.itno + polish_iters
+        cfg64 = SolverConfig.for_dtype(f64)._replace(
+            max_iters=polish_target, lm_switch_count=10_000)
+        # the main run's tensors (the grid tables among them) go first
+        pa = None
+        pa64 = ProblemArrays.from_problem(problem, dtype=f64, device=device,
+                                          schur=schur, backend=cfg64.backend)
+        if resume64 is not None:
+            c64, p64 = (as_t(a, f64) for a in resume64)
+        else:
+            c64, p64 = state.cams.to(f64), state.pts.to(f64)
+        state64 = OptState.init(pa64, c64, p64, clamp=cfg.clamp_quat)
+        state64.itno = state.itno
+        # the damping thresholds depend on the dtype
+        cfg64 = resolve_damping(cfg64, pa64, state64.cams, state64.pts)
+        if chunk:
+            state64.aux = (
+                torch.as_tensor(resume_aux, dtype=f64, device=device)
+                if resume64 is not None and resume_aux is not None
+                else lm_fresh_aux(f64, device))
+        while True:
+            with timers.phase("lm64"):
+                cap = (min(state64.itno + chunk, polish_target) if chunk
+                       else None)
+                state64 = lm_run(pa64, state64, cfg64, iter_cap=cap)
+            flag = state64.flag
+            check_finite("lm64", cams=state64.cams, pts=state64.pts,
+                         ex_l2=state64.ex_l2)
+            mid_phase = (
+                chunk > 0
+                and flag == CC.ITER_CONTINUE
+                and state64.itno < polish_target
+            )
+            if checkpoint_dir:
+                ckpt.save(
+                    checkpoint_dir, state64.cams.cpu().numpy(),
+                    state64.pts.cpu().numpy(), state64.itno, flag, "lm64",
+                    extra={"ex_l2": float(state64.ex_l2),
+                           "polish_target": polish_target,
+                           "point_order": point_order},
+                    aux=state64.aux.cpu().numpy() if mid_phase else None,
+                )
+            if not mid_phase:
+                break
+        state = state64
+        phases.append(("lm64", state.itno, flag))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0

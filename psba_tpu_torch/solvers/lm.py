@@ -1,19 +1,27 @@
-"""Levenberg–Marquardt solver (PyTorch counterpart of the dense3 and the
-covisibility-pair branches of psba_tpu.solvers.lm.lm_run).
+"""Levenberg–Marquardt solver (PyTorch counterpart of
+psba_tpu.solvers.lm.lm_run: its dense3, dense XLA-form and pair branches).
 
 One outer iteration linearizes once and then runs the damping-retry loop:
 damp U and V, invert V, assemble and solve the reduced camera system
 (spd_solve), back-substitute the points and evaluate the trial gain.
 
-  - dense3 (ProblemArrays with the dense tables): everything on the dense
-    grid (ops.linearize_dense with U / ga; inv3x3_planar3, schur_S_dense3,
+The kernel path (solvers.types.use_kernels: float32 by default):
+  - dense3 (the dense encoding): everything on the dense grid
+    (ops.linearize_dense with U / ga; inv3x3_planar3, schur_S_dense3,
     reduced_rhs_dense3, back_substitute_dense3; ops.gain_dense). The
     residual ex is never formed and stays at its phase-entry value.
-  - pairs (ProblemArrays with the pair list): the observation stream
-    (ops.linearize_stream with the point sums and W; inv3x3, y_blocks,
-    schur_S, reduced_rhs, back_substitute); the trial residual and the
-    gain, the factored error_l2_diff(ex, new_ex), come from one
-    ops.residual_l2 call, and ex is refreshed on accept.
+  - pairs: the observation stream (ops.linearize_stream with the point
+    sums and W; inv3x3, y_blocks, schur_S, reduced_rhs, back_substitute);
+    the trial residual and the gain, the factored error_l2_diff(ex,
+    new_ex), come from one ops.residual_l2 call, and ex is refreshed on
+    accept.
+The XLA form (float64 by default, or backend="xla"), torch ops only:
+  core.jacobian.jacobians + core.hessian.assemble_blocks linearize; on the
+  dense encoding stack_blocks / planar_gb once per iteration, then the
+  dense family (inv3x3_planar, schur_S_dense, reduced_rhs_dense,
+  back_substitute_dense) in every try; on the pairs the pair family. The
+  trial residual is core.residual.residuals, the gain error_l2_diff(ex,
+  new_ex), and ex is refreshed on accept.
 
 The loops are eager Python. Tensors stay on the device; once per try the
 few scalars that decide acceptance are read to the host in one transfer,
@@ -38,21 +46,34 @@ import numpy as np
 import torch
 
 from psba_tpu_torch import constants as CC
-from psba_tpu_torch.core.hessian import damp_uv, damp_uv_marquardt, max_diag
+from psba_tpu_torch.core.hessian import (
+    assemble_blocks,
+    damp_uv,
+    damp_uv_marquardt,
+    max_diag,
+)
+from psba_tpu_torch.core.jacobian import jacobians
 from psba_tpu_torch.core.linalg import spd_solve
+from psba_tpu_torch.core.residual import error_l2_diff, residuals
 from psba_tpu_torch.core.schur import (
     back_substitute,
+    back_substitute_dense,
     back_substitute_dense3,
     damp_v_planar,
     damp_v_planar_marquardt,
     diag_v_planar,
     inv3x3,
+    inv3x3_planar,
     inv3x3_planar3,
     max_diag_planar,
+    planar_gb,
     reduced_rhs,
+    reduced_rhs_dense,
     reduced_rhs_dense3,
     schur_S,
+    schur_S_dense,
     schur_S_dense3,
+    stack_blocks,
     y_blocks,
 )
 from psba_tpu_torch.ops.linearize_dense import linearize_dense
@@ -63,6 +84,7 @@ from psba_tpu_torch.solvers.types import (
     ProblemArrays,
     SolverConfig,
     np_dtype,
+    use_kernels,
 )
 
 _NU_OVERFLOW = 2.0 ** 31  # the reference's int nu wraps here
@@ -85,15 +107,10 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             "psba_tpu_torch.solvers.types.resolve_damping(cfg, pa, cams, "
             "pts) (solve does this itself)"
         )
-    if cfg.backend == "xla":
-        raise NotImplementedError(
-            "backend='xla' (the XLA-form dense path): not ported yet "
-            "(ROADMAP Queue 1 item 11)"
-        )
     if cfg.s_precision != "highest":
         raise NotImplementedError(
             f"s_precision={cfg.s_precision!r}: its Hopper mapping is not "
-            "decided yet (ROADMAP Queue 1, s_precision item)"
+            "decided yet (ROADMAP Queue 1 item 18)"
         )
     marq = cfg.damping == "marquardt"
     dtype = state.cams.dtype
@@ -123,11 +140,25 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     ex_l2 = ft(state.ex_l2.item())
     itno, flag = state.itno, CC.ITER_CONTINUE
     pairs = pa.pairs
+    kernels = use_kernels(cfg, dtype)
+    pa.need(kernels)
+    # the kernel path on the dense encoding; every other path carries V
+    # blocks [P, 3, 3] and refreshes ex on accept
+    dense3 = kernels and not pairs
     clamp = cfg.clamp_quat
     tables = (pa.obs_du, pa.obs_dv, pa.valid_d)
 
     while itno < cap and flag == CC.ITER_CONTINUE:
-        if pairs:
+        if not kernels:
+            A, B = jacobians(pa.K, pa.q0, cams, pts, pa.cam_idx, pa.pt_idx,
+                             clamp=clamp)
+            U, V, W, ga, gb = assemble_blocks(A, B, ex, pa.cam_idx,
+                                              pa.pt_idx, C, P)
+            if not pairs:
+                # once per iteration: every try reuses the planar ZW
+                ZW = stack_blocks(W, pa.blk_idx)
+                gbp = planar_gb(gb)
+        elif pairs:
             _ex, _l2, U, V, W, ga, gb, _, _ = linearize_stream(
                 pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
                 C, P, clamp=clamp, tables=pa.stream,
@@ -143,13 +174,13 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             if marq:
                 mu = ft(cfg.tau)
             else:
-                md = max_diag(U, V) if pairs else max_diag_planar(U, Vp, P)
+                md = max_diag_planar(U, Vp, P) if dense3 else max_diag(U, V)
                 mu = ft(cfg.tau) * ft(md.item())
             nu, p_l2 = ft(2.0), ft(1e3)
         if marq:
             dU = torch.diagonal(U, dim1=-2, dim2=-1)
-            dV = (torch.diagonal(V, dim1=-2, dim2=-1) if pairs
-                  else diag_v_planar(Vp, P))
+            dV = (diag_v_planar(Vp, P) if dense3
+                  else torch.diagonal(V, dim1=-2, dim2=-1))
             Dc = torch.where(dU > 0.0, dU, torch.ones_like(dU))
             Dp = torch.where(dV > 0.0, dV, torch.ones_like(dV))
 
@@ -157,14 +188,19 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
         while (flag == CC.ITER_CONTINUE and not accepted
                and tries < cfg.max_inner):
             mu_t = float(mu)
-            if pairs:
+            if not dense3:
                 U_d, V_d = (damp_uv_marquardt if marq else damp_uv)(U, V,
                                                                     mu_t)
+            if pairs:
                 Vinv, vok = inv3x3(V_d)
                 Y = y_blocks(W, Vinv, pa.pt_idx)
                 S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
                             pa.pair_bucket, C)
                 ea = reduced_rhs(ga, gb, Y, pa.cam_idx, pa.pt_idx, C)
+            elif not kernels:
+                Vinv, vok = inv3x3_planar(V_d)
+                S, ZY = schur_S_dense(U_d, ZW, Vinv)
+                ea = reduced_rhs_dense(ga, gbp, ZY)
             else:
                 if marq:
                     U_d = U + (mu_t * Dc)[..., None] * eye6
@@ -180,11 +216,17 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             if pairs:
                 _eb, dpb = back_substitute(gb, W, Vinv, dpa, pa.cam_idx,
                                            pa.pt_idx, P)
+            elif not kernels:
+                _ebp, dpb = back_substitute_dense(gbp, ZW, Vinv, dpa)
             else:
                 dpb = back_substitute_dense3(gbp, ZW3, Vinv, dpa)[:, :P].T
             new_cams = cams + dpa
             new_pts = pts + dpb
-            if pairs:
+            if not kernels:
+                new_ex = residuals(pa.K, pa.q0, new_cams, new_pts, pa.obs,
+                                   pa.cam_idx, pa.pt_idx, clamp=clamp)
+                gain_t = error_l2_diff(ex, new_ex)
+            elif pairs:
                 new_ex, _new_l2, gain_t = residual_l2(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
                     pa.pt_idx32, None, clamp=clamp, kq=pa.kq, ex_old=ex,
@@ -229,7 +271,7 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 if good >= cfg.lm_switch_count:
                     flag = CC.ITER_TURN_TO_TR
                 cams, pts = new_cams, new_pts
-                if pairs:
+                if not dense3:
                     ex = new_ex
                 ex_l2 = ex_l2 - gain
                 p_l2 = nc2 + np2

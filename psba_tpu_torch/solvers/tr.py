@@ -1,8 +1,9 @@
-"""Dogleg trust-region solver (PyTorch counterpart of the dense3 and the
-covisibility-pair branches of psba_tpu.solvers.tr.tr_run).
+"""Dogleg trust-region solver (PyTorch counterpart of
+psba_tpu.solvers.tr.tr_run: its dense3, dense XLA-form and pair branches).
 
-The camera blocks U and the gradient ga always come from the observation
-stream (ops.linearize_stream), whose camera-ordered reduction is what lets
+On the kernel path (solvers.types.use_kernels: float32 by default) the
+camera blocks U and the gradient ga come from the observation stream
+(ops.linearize_stream), whose camera-ordered reduction is what lets
 float32 TR reach the optimum (TR takes g itself as its Cauchy direction and
 in the model prediction).
 
@@ -16,6 +17,15 @@ in the model prediction).
     core.jacobian.jmultiply, each trial residual and its gain, the factored
     error_l2_diff(ex, new_ex), from one ops.residual_l2 call; ex is
     refreshed on accept.
+
+The XLA form (float64 by default, or backend="xla"), torch ops only:
+A and B from core.jacobian.jacobians, the blocks from
+core.hessian.assemble_blocks(coeff=2); on the dense encoding stack_blocks /
+planar_gb once per iteration and the dense Schur family (inv3x3_planar,
+schur_S_dense, reduced_rhs_dense, back_substitute_dense), on the pairs the
+pair family; every |J x|^2 from jmultiply; each trial residual from
+core.residual.residuals, its gain error_l2_diff(ex, new_ex); ex is
+refreshed on accept.
 
 Then, in both:
 
@@ -50,19 +60,26 @@ import torch
 
 from psba_tpu_torch import constants as CC
 from psba_tpu_torch.core.gmw import gmw_bootstrap_lambda
-from psba_tpu_torch.core.hessian import damp_uv
-from psba_tpu_torch.core.jacobian import jmultiply
+from psba_tpu_torch.core.hessian import assemble_blocks, damp_uv
+from psba_tpu_torch.core.jacobian import jacobians, jmultiply
 from psba_tpu_torch.core.linalg import spd_solve
+from psba_tpu_torch.core.residual import error_l2, error_l2_diff, residuals
 from psba_tpu_torch.core.schur import (
     back_substitute,
+    back_substitute_dense,
     back_substitute_dense3,
     damp_v_planar,
     inv3x3,
+    inv3x3_planar,
     inv3x3_planar3,
+    planar_gb,
     reduced_rhs,
+    reduced_rhs_dense,
     reduced_rhs_dense3,
     schur_S,
+    schur_S_dense,
     schur_S_dense3,
+    stack_blocks,
     y_blocks,
 )
 from psba_tpu_torch.ops.linearize_dense import linearize_dense
@@ -73,6 +90,7 @@ from psba_tpu_torch.solvers.types import (
     ProblemArrays,
     SolverConfig,
     np_dtype,
+    use_kernels,
 )
 
 _MAX_SOLVE_TRIES = 64
@@ -142,15 +160,10 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     """Run dogleg TR until a flag other than PASS / CONTINUE or the shared
     iteration budget (or `iter_cap`, a global-iteration bound below
     cfg.max_iters for chunked checkpointing)."""
-    if cfg.backend == "xla":
-        raise NotImplementedError(
-            "backend='xla' (the XLA-form dense path): not ported yet "
-            "(ROADMAP Queue 1 item 11)"
-        )
     if cfg.s_precision != "highest":
         raise NotImplementedError(
             f"s_precision={cfg.s_precision!r}: its Hopper mapping is not "
-            "decided yet (ROADMAP Queue 1, s_precision item)"
+            "decided yet (ROADMAP Queue 1 item 18)"
         )
     dtype = state.cams.dtype
     dev = state.cams.device
@@ -181,6 +194,11 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     ex_l2 = ft(state.ex_l2.item())
     itno, flag = state.itno, CC.ITER_CONTINUE
     pairs = pa.pairs
+    kernels = use_kernels(cfg, dtype)
+    pa.need(kernels)
+    # the kernel path on the dense encoding; every other path has A, B for
+    # jmultiply, carries V blocks [P, 3, 3] and refreshes ex on accept
+    dense3 = kernels and not pairs
 
     def jgram(c, p, dirs_c, dirs_p):
         # the directions as sequences of [C, 6] / [P, 3] parts, read in place
@@ -192,7 +210,17 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
 
     while itno < cap and flag in (CC.ITER_PASS, CC.ITER_CONTINUE):
         # every block carries the TR coefficient 2
-        if pairs:
+        if not kernels:
+            A, B = jacobians(pa.K, pa.q0, cams, pts, pa.cam_idx, pa.pt_idx,
+                             clamp=clamp)
+            U, V, W, ga2, gb2 = assemble_blocks(A, B, ex, pa.cam_idx,
+                                                pa.pt_idx, C, P, coeff=2.0)
+            g_c, g_p = -ga2, -gb2
+            if not pairs:
+                # once per iteration: every lambda try reuses them
+                ZW = stack_blocks(W, pa.blk_idx)
+                g_pp = planar_gb(g_p)
+        elif pairs:
             _ex, _l2, U1, V1, W1, ga1, gb1, A, B = linearize_stream(
                 pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
                 C, P, clamp=clamp, want_jac=True, tables=pa.stream,
@@ -221,7 +249,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                            torch.max(torch.abs(g_p)))
         gm = torch.where(gm > 0.0, gm, torch.ones_like(gm))
         gh_c, gh_p = g_c / gm, g_p / gm
-        if pairs:
+        if not dense3:
             Jg = jx(A, B, gh_c, gh_p)
             gtBg_n = 2.0 * torch.sum(Jg * Jg)
         else:
@@ -235,13 +263,18 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
         pb_c, pb_p = torch.zeros_like(cams), torch.zeros_like(pts)
         while not solved and not failed_out and tries < _MAX_SOLVE_TRIES:
             lam_t = float(lam)
-            if pairs:
+            if not dense3:
                 U_d, V_d = damp_uv(U, V, lam_t)
+            if pairs:
                 Vinv, vok = inv3x3(V_d)
                 Y = y_blocks(W, Vinv, pa.pt_idx)
                 S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
                             pa.pair_bucket, C)
                 ea = reduced_rhs(g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C)
+            elif not kernels:
+                Vinv, vok = inv3x3_planar(V_d)
+                S, ZY = schur_S_dense(U_d, ZW, Vinv)
+                ea = reduced_rhs_dense(g_c, g_pp, ZY)
             else:
                 Vinv, vok = inv3x3_planar3(damp_v_planar(Vp, lam_t))
                 S, ZY3 = schur_S_dense3(U + lam_t * eye6, ZW3, Vinv)
@@ -255,6 +288,8 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 if pairs:
                     _eb, dpb = back_substitute(g_p, W, Vinv, dpa, pa.cam_idx,
                                                pa.pt_idx, P)
+                elif not kernels:
+                    _ebp, dpb = back_substitute_dense(g_pp, ZW, Vinv, dpa)
                 else:
                     dpb = back_substitute_dense3(g_pp3, ZW3, Vinv,
                                                  dpa)[:, :P].T
@@ -283,7 +318,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             m_flag = CC.ITER_TURN_TO_LM
         else:
             # curvature scalars, each an explicit |J x|^2
-            if pairs:
+            if not dense3:
                 Jpu, Jpb = jx(A, B, pu_c, pu_p), jx(A, B, pb_c, pb_p)
                 pUtBpU = 2.0 * torch.sum(Jpu * Jpu)
                 pUtBpB = 2.0 * torch.sum(Jpu * Jpb)
@@ -299,7 +334,14 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 pBtBpB, dk,
             )
             new_cams, new_pts = cams + p_c, pts + p_p
-            if pairs:
+            if not kernels:
+                new_ex = residuals(pa.K, pa.q0, new_cams, new_pts, pa.obs,
+                                   pa.cam_idx, pa.pt_idx, clamp=clamp)
+                act_t = error_l2(new_ex)
+                gain_t = error_l2_diff(ex, new_ex)
+                Jp = jx(A, B, p_c, p_p)
+                ptBp_t = 2.0 * torch.sum(Jp * Jp)
+            elif pairs:
                 new_ex, act_t, gain_t = residual_l2(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
                     pa.pt_idx32, None, clamp=clamp, kq=pa.kq, ex_old=ex,
@@ -352,7 +394,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 ex_l2 = ex_l2 - gain
             if accept:
                 cams, pts = new_cams, new_pts
-                if pairs:
+                if not dense3:
                     ex = new_ex
             m_tries += 1
         if m_tries >= _MAX_MODEL_TRIES:

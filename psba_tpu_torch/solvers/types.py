@@ -49,10 +49,19 @@ def torch_dtype(dtype) -> torch.dtype:
 class SolverConfig(NamedTuple):
     """Same fields and defaults as psba_tpu.solvers.types.SolverConfig.
 
-    In this port `backend`, `s_reduce` and `s_precision` keep their names
-    so configurations carry over: `backend` must be "auto" or "pallas"
-    (both mean the hand-written kernels on CUDA), `s_reduce` only matters
-    on a mesh, and `s_precision` must be "highest"."""
+    `backend` (resolved by use_kernels):
+      - "pallas": the kernel path, the hand-written kernels on CUDA tensors
+        and their plain versions on CPU tensors: dense3 on the dense
+        encoding, the observation-stream kernels on the pairs;
+      - "xla": the XLA form (core.hessian.assemble_blocks, the dense or the
+        pair Schur family, spd_solve_xla) in any dtype; on CUDA float32 it
+        is a request for a path of torch ops only, and stays one;
+      - "auto": the kernel path for float32, the XLA form for float64, on
+        any device. Named deviation: the reference's "auto" takes the XLA
+        form for float32 off the TPU; the port keeps the kernels' plain
+        versions on a CPU float32 run.
+    `s_reduce` only matters on a mesh (ROADMAP Queue 1 item 16), and
+    `s_precision` must be "highest" ("high": item 18)."""
 
     tau: float = C.PSBA_INIT_MU
     stop_thresh: float = C.PSBA_STOP_THRESH
@@ -79,6 +88,23 @@ class SolverConfig(NamedTuple):
         else:
             base = cls()
         return base._replace(**overrides) if overrides else base
+
+
+def kernels_for(backend: str, dtype) -> bool:
+    """True when `backend` in `dtype` resolves to the kernel path."""
+    if backend == "pallas":
+        return True
+    if backend == "xla":
+        return False
+    if backend == "auto":
+        return torch_dtype(dtype) == torch.float32
+    raise ValueError(f"backend={backend!r}: 'auto', 'pallas' or 'xla'")
+
+
+def use_kernels(cfg: SolverConfig, dtype) -> bool:
+    """Backend resolution (the port's counterpart of the reference's
+    use_pallas; see SolverConfig.backend)."""
+    return kernels_for(cfg.backend, dtype)
 
 
 def _diag_minmax(K, q0, cams, pts, cam_idx, pt_idx, clamp):
@@ -117,22 +143,26 @@ def resolve_damping(cfg: SolverConfig, pa: "ProblemArrays", cams,
 @dataclasses.dataclass(frozen=True)
 class ProblemArrays:
     """Problem tensors on one device. Exactly one Schur encoding is
-    present: the dense (camera x point) tables, or the covisibility pair
-    list (problem.build_covis_pairs)."""
+    present: the dense (camera x point) table blk_idx, or the covisibility
+    pair list (problem.build_covis_pairs). What only the kernel path reads
+    (the stream tables, the int32 index copies, the dense grid tables) is
+    built only for it (from_problem's `backend`)."""
 
     K: torch.Tensor         # [C, 5]
     q0: torch.Tensor        # [C, 4]
     obs: torch.Tensor       # [O, 2]
     cam_idx: torch.Tensor   # [O] int64
     pt_idx: torch.Tensor    # [O] int64
-    # int32 copies of the two index streams, read by the residual_l2 kernel
-    # (the same tensors as stream.cam32 / stream.pt32)
-    cam_idx32: torch.Tensor
-    pt_idx32: torch.Tensor
-    # the camera-sorted and point-sorted walks of the observation stream
-    # (ops.linearize_stream), built once here
-    stream: StreamTables
-    # dense encoding
+    # kernel path: int32 copies of the two index streams, read by the
+    # residual_l2 kernel (the same tensors as stream.cam32 / stream.pt32)
+    cam_idx32: torch.Tensor | None = None
+    pt_idx32: torch.Tensor | None = None
+    # kernel path: the camera-sorted and point-sorted walks of the
+    # observation stream (ops.linearize_stream), built once here
+    stream: StreamTables | None = None
+    # dense encoding: the (camera, point) -> observation table, n_obs where
+    # unseen (core.schur.stack_blocks); the grid tables on the kernel path
+    blk_idx: torch.Tensor | None = None  # [C, P] int64
     obs_du: torch.Tensor | None = None   # [C, P] measurements (u), 0 unseen
     obs_dv: torch.Tensor | None = None   # [C, P] measurements (v), 0 unseen
     valid_d: torch.Tensor | None = None  # [C, P] 1.0 where observed
@@ -148,41 +178,62 @@ class ProblemArrays:
         object.__setattr__(self, "kq", torch.cat([self.K, self.q0], dim=1))
 
     @staticmethod
-    def from_problem(prob, dtype=None, device="cpu",
-                     schur="auto") -> "ProblemArrays":
+    def from_problem(prob, dtype=None, device="cpu", schur="auto",
+                     backend="auto") -> "ProblemArrays":
         """Build the tensors of a psba_tpu_torch.problem.BAProblem on
-        `device` in `dtype` (default: the problem's own), with the stream
-        tables of the camera-ordered walk. `schur` picks the encoding:
-        "dense", "pairs", or "auto" (dense up to DENSE_MAX_ENTRIES camera x
-        point cells, pairs above)."""
+        `device` in `dtype` (default: the problem's own). `schur` picks the
+        encoding: "dense", "pairs", or "auto" (dense up to
+        DENSE_MAX_ENTRIES camera x point cells, pairs above). `backend`
+        (SolverConfig.backend, resolved in `dtype`) says which path will
+        read them: the kernel path also gets the stream tables of the
+        camera-ordered walk and, dense, the grid tables; the XLA form gets
+        neither, so a float64 dense solve does not hold the grid."""
         if schur not in ("auto", "dense", "pairs"):
             raise ValueError(f"schur={schur!r}")
         if schur == "auto":
             schur = ("dense" if prob.n_cams * prob.n_pts <= DENSE_MAX_ENTRIES
                      else "pairs")
         dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)
+        kernels = kernels_for(backend, dt)
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-        i = lambda a, kind=torch.int64: torch.as_tensor(
-            np.asarray(a), dtype=kind, device=device)
+        i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                      device=device)
         if schur == "dense":
-            from psba_tpu_torch.ops.linearize_dense import dense_obs_tables
-
             prob = prob.with_blk()
-            du, dv, vd = dense_obs_tables(prob.blk_idx, prob.obs,
-                                          prob.n_obs, dtype=np_dtype(dt))
-            enc = dict(obs_du=f(du), obs_dv=f(dv), valid_d=f(vd))
+            enc = dict(blk_idx=i(prob.blk_idx))
+            if kernels:
+                from psba_tpu_torch.ops.linearize_dense import (
+                    dense_obs_tables,
+                )
+
+                du, dv, vd = dense_obs_tables(prob.blk_idx, prob.obs,
+                                              prob.n_obs, dtype=np_dtype(dt))
+                enc.update(obs_du=f(du), obs_dv=f(dv), valid_d=f(vd))
         else:
             prob = prob.with_pairs()
             enc = dict(pair_o1=i(prob.pair_o1), pair_o2=i(prob.pair_o2),
                        pair_bucket=i(prob.pair_bucket))
-        stream = build_stream_tables(prob.cam_idx, prob.pt_idx, prob.n_cams,
-                                     prob.n_pts, device=device)
+        if kernels:
+            stream = build_stream_tables(prob.cam_idx, prob.pt_idx,
+                                         prob.n_cams, prob.n_pts,
+                                         device=device)
+            enc.update(cam_idx32=stream.cam32, pt_idx32=stream.pt32,
+                       stream=stream)
         return ProblemArrays(
             K=f(prob.K), q0=f(prob.q0), obs=f(prob.obs),
-            cam_idx=i(prob.cam_idx), pt_idx=i(prob.pt_idx),
-            cam_idx32=stream.cam32, pt_idx32=stream.pt32, stream=stream,
-            **enc,
+            cam_idx=i(prob.cam_idx), pt_idx=i(prob.pt_idx), **enc,
         )
+
+    def need(self, kernels: bool) -> None:
+        """Raise unless these tensors carry what the chosen path reads."""
+        if kernels and (self.stream is None
+                        or (not self.pairs and self.obs_du is None)):
+            raise ValueError(
+                "ProblemArrays built for the XLA form: the kernel path "
+                "needs the stream and grid tables (from_problem with "
+                "backend='pallas', or 'auto' in float32)")
+        if not kernels and not self.pairs and self.blk_idx is None:
+            raise ValueError("the dense XLA form needs blk_idx")
 
     @property
     def pairs(self) -> bool:

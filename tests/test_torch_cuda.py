@@ -598,3 +598,148 @@ def test_pairs_solve_on_cuda_matches_cpu(cuda):
     assert r_gpu.flag == r_cpu.flag and r_gpu.iterations == r_cpu.iterations
     np.testing.assert_allclose(r_gpu.final_l2, r_cpu.final_l2, rtol=1e-3)
     np.testing.assert_allclose(r_gpu.final_l2, r_dense.final_l2, rtol=1e-3)
+
+
+# ------------------------------------------------ the float64 (XLA) path
+
+_KERNELS = ("linearize_dense", "gain_dense", "jgram_dense", "spd_solve",
+            "linearize_stream", "residual_l2")
+
+
+def _kernel_counts():
+    from psba_tpu_torch.ops import cholesky as chol
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.ops import linearize_stream as ls
+    from psba_tpu_torch.ops import residual_dense as rd
+
+    fns = (ld.linearize_dense, rd.gain_dense, rd.jgram_dense, chol.spd_solve,
+           ls.linearize_stream, ls.residual_l2)
+    return {k: fn.launches for k, fn in zip(_KERNELS, fns)}
+
+
+def test_xla_functions_on_cuda_match_cpu(cuda):
+    """Each XLA-form function in float64 on the card (cuBLAS DGEMM / gemv,
+    cuSOLVER, the fixed-order bucket sums) against the same call on the
+    CPU, both fed the same inputs: to 1e-12 relative (the same products
+    summed in another order). The solve is held to cond(S) * 1e-15: a
+    backward-stable factorization's forward error grows with the condition
+    number (about 7e7 here: S is singular along the gauge but for the
+    damping)."""
+    from psba_tpu_torch.core import hessian as th
+    from psba_tpu_torch.core import linalg as tl
+    from psba_tpu_torch.core import schur as ts
+    from psba_tpu_torch.core.jacobian import jacobians
+    from psba_tpu_torch.core.residual import residuals
+    from psba_tpu_torch.io import synthetic_problem
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    prob = synthetic_problem(n_cams=13, n_pts=700, seed=2)
+    f64 = torch.float64
+    C, P = prob.n_cams, prob.n_pts
+    pa = ProblemArrays.from_problem(prob, dtype=f64)
+    pa_c = ProblemArrays.from_problem(prob, dtype=f64, device=cuda)
+    assert pa_c.obs_du is None and pa_c.blk_idx is not None
+    cams = torch.as_tensor(prob.cams + 1e-3, dtype=f64)
+    pts = torch.as_tensor(prob.pts, dtype=f64)
+
+    def both(fn, *args):
+        """fn on the CPU and on the card with the same inputs; returns the
+        CPU outputs after holding the card's to them."""
+        ref = fn(*args)
+        got = fn(*(a.to(cuda) if torch.is_tensor(a) else a for a in args))
+        single = not isinstance(ref, tuple)
+        for r, g in zip((ref,) if single else ref, (got,) if single else got):
+            assert g.device.type == "cuda" and g.dtype == r.dtype
+            if r.dtype == torch.bool:
+                assert bool(r) == bool(g.cpu())
+            else:
+                assert _rel(g.cpu(), r) < 1e-12, fn.__name__
+        return ref
+
+    idx = (pa.cam_idx, pa.pt_idx)
+    A, B = both(jacobians, pa.K, pa.q0, cams, pts, *idx)
+    ex = both(residuals, pa.K, pa.q0, cams, pts, pa.obs, *idx)
+    U, V, W, ga, gb = both(th.assemble_blocks, A, B, ex, *idx, C, P, 2.0)
+    U_d, V_d = th.damp_uv(U, V, 0.5)
+    Vp, ok_v = both(ts.inv3x3_planar, V_d)
+    ZW = both(ts.stack_blocks, W, pa.blk_idx)
+    gbp = both(ts.planar_gb, gb)
+    S, ZY = both(ts.schur_S_dense, U_d, ZW, Vp)
+    ea = both(ts.reduced_rhs_dense, ga, gbp, ZY)
+    calls = tl.spd_solve_xla.calls
+    dpa, ok = tl.spd_solve(S, ea.reshape(-1))
+    dpa_c, ok_c = tl.spd_solve(S.to(cuda), ea.reshape(-1).to(cuda))
+    assert tl.spd_solve_xla.calls == calls + 2
+    assert bool(ok) and bool(ok_c) and bool(ok_v)
+    cond = float(torch.linalg.cond(S))
+    assert _rel(dpa_c.cpu(), dpa) < 1e-15 * cond
+    both(ts.back_substitute_dense, gbp, ZW, Vp, dpa.reshape(C, 6))
+
+
+@pytest.mark.parametrize("schur", ["dense", "pairs"])
+def test_lm_run_xla_on_cuda_matches_cpu(cuda, schur):
+    """Six float64 LM iterations with backend="xla" on the card and on the
+    CPU from one state: history rows and parameters to 1e-9, the same flag;
+    none of the six kernels launches."""
+    from psba_tpu_torch.io import bal_to_problem
+    from psba_tpu_torch.solvers import OptState, ProblemArrays, SolverConfig
+    from psba_tpu_torch.solvers.lm import lm_run
+
+    prob = bal_to_problem(str(REPO / "tests" / "data" / "mini_bal.txt"))
+    cfg = SolverConfig.for_dtype(torch.float64, max_iters=6,
+                                 lm_switch_count=10_000, record_history=True,
+                                 damping="additive", backend="xla")
+    runs = {}
+    before = _kernel_counts()
+    for dev in ("cpu", cuda):
+        pa = ProblemArrays.from_problem(prob, dtype=torch.float64,
+                                        device=dev, schur=schur)
+        f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        st = OptState.init(pa, f(prob.cams), f(prob.pts))
+        runs[str(dev)] = lm_run(pa, st, cfg)
+    assert _kernel_counts() == before
+    a, b = runs[str(cuda)], runs["cpu"]
+    assert a.itno == b.itno == 6 and a.flag == b.flag
+    np.testing.assert_allclose(a.history, b.history, rtol=1e-9)
+    assert _rel(a.cams.cpu(), b.cams) < 1e-9 and _rel(a.pts.cpu(), b.pts) < 1e-9
+
+
+def test_f64_solve_on_cuda_launches_no_kernel(cuda):
+    """The default float64 solve on the card (the XLA form) launches none
+    of the six kernels, meets the CPU's final L2 to 1e-9 with the same
+    phases, and a second run gives the same bits."""
+    import psba_tpu_torch
+    from psba_tpu_torch.io import bal_to_problem
+
+    prob = bal_to_problem(str(REPO / "tests" / "data" / "mini_bal.txt"))
+    before = _kernel_counts()
+    r1 = psba_tpu_torch.solve(prob, device=cuda)
+    r2 = psba_tpu_torch.solve(prob, device=cuda)
+    assert _kernel_counts() == before
+    r_cpu = psba_tpu_torch.solve(prob, device="cpu")
+    assert r1.final_l2 == r2.final_l2 and r1.phases == r2.phases
+    assert r1.phases == r_cpu.phases
+    np.testing.assert_allclose(r1.final_l2, r_cpu.final_l2, rtol=1e-9)
+
+
+def test_polish_on_cuda_follows_the_kernels(cuda):
+    """A float32 solve with polish_iters=2 on the card: the float32 part
+    launches the kernels, "lm64" comes last and the polish launches none."""
+    import psba_tpu_torch
+    from psba_tpu_torch.io import bal_to_problem
+    from psba_tpu_torch.solvers import SolverConfig
+
+    prob = bal_to_problem(str(REPO / "tests" / "data" / "mini_bal.txt"))
+    cfg = SolverConfig.for_dtype(torch.float32, max_iters=10,
+                                 lm_switch_count=10_000)
+    before = _kernel_counts()
+    main = psba_tpu_torch.solve(prob, cfg, dtype=torch.float32, device=cuda)
+    mid = _kernel_counts()
+    pol = psba_tpu_torch.solve(prob, cfg, dtype=torch.float32, device=cuda,
+                               polish_iters=2)
+    after = _kernel_counts()
+    assert mid["linearize_dense"] > before["linearize_dense"]
+    assert {k: after[k] - mid[k] for k in _KERNELS} == {
+        k: mid[k] - before[k] for k in _KERNELS}
+    assert pol.phases[:-1] == main.phases and pol.phases[-1][0] == "lm64"
+    assert pol.iterations == main.iterations + 2

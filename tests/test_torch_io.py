@@ -3,10 +3,12 @@
 psba_tpu_torch keeps copies of psba_tpu's problem container and numpy
 readers, so the port runs without the JAX package. Both must give the same
 arrays from the same input, exactly (the same numpy code and the same
-random stream).
+random stream). The port's native reader (native/loader.cpp, built into
+build/psba_tpu_torch/) must give its numpy parser's arrays bit for bit.
 """
 
 import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
@@ -89,3 +91,69 @@ def test_synthesize_points_matches_reference(tmp_path, n_cams, n_pts,
     ref = jio.synthesize_points_for_cams(path, **kw)
     got.validate()
     _same(got, ref)
+
+
+# ---------------------------------------------------------- native reader
+
+@pytest.fixture
+def sba_pair(tmp_path):
+    """mini_bal written as an SBA (cams, pts) text pair."""
+    cams, pts = str(tmp_path / "cams.txt"), str(tmp_path / "pts.txt")
+    tio.bal.write_sba_text(tio.bal_to_problem(MINI_BAL), cams, pts)
+    return cams, pts
+
+
+def _same_arrays(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert (a is None) == (b is None), i
+        if a is not None:
+            assert a.dtype == b.dtype and a.shape == b.shape, i
+            np.testing.assert_array_equal(a, b, err_msg=str(i))
+
+
+@pytest.mark.parametrize("kind", ["bal", "sba"])
+def test_native_reader_matches_numpy_and_reference(kind, sba_pair,
+                                                   monkeypatch):
+    """The port's native reader (native/loader.cpp built into
+    build/psba_tpu_torch/) against its numpy parser and against the
+    reference's ctypes wrapper on the same library, bit for bit; the
+    readers the package uses take the native one; nothing is written into
+    native/."""
+    from psba_tpu.io import native as jnative
+    from psba_tpu_torch.io import native
+
+    before = sorted(os.listdir(native.SOURCE.parent))
+    assert native.available(), native.reader()
+    lib = native.library_path()
+    assert lib.parent == native.BUILD_DIR and lib.exists()
+    assert native.BUILD_DIR.parts[-2:] == ("build", "psba_tpu_torch")
+    monkeypatch.setattr(jnative, "_LIB_PATH", str(lib))
+    monkeypatch.setattr(jnative, "_lib", None)
+    if kind == "bal":
+        got = native.read_bal(MINI_BAL)
+        _same_arrays(got, tio.bal.read_bal_numpy(MINI_BAL))
+        _same_arrays(got, jnative.read_bal(MINI_BAL))
+        _same_arrays(got, tio.bal.read_bal(MINI_BAL))
+    else:
+        got = native.read_pts(sba_pair[1], 20)
+        _same_arrays(got, tio.sba_text.read_pts_numpy(sba_pair[1], 20))
+        _same_arrays(got, jnative.read_pts(sba_pair[1], 20))
+        _same_arrays(got, tio.sba_text.read_pts(sba_pair[1], 20))
+    assert sorted(os.listdir(native.SOURCE.parent)) == before
+
+
+def test_numpy_reader_without_gxx(sba_pair, tmp_path, monkeypatch):
+    """Without g++ (and no library built) the readers fall back to numpy,
+    say so, and give the same arrays."""
+    from psba_tpu_torch.io import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_failed", None)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    assert not native.available()
+    assert native.reader().startswith("numpy") and "g++" in native.reader()
+    _same_arrays(tio.sba_text.read_pts(sba_pair[1], 20),
+                 tio.sba_text.read_pts_numpy(sba_pair[1], 20))
+    _same_arrays(tio.bal.read_bal(MINI_BAL), tio.bal.read_bal_numpy(MINI_BAL))
+    assert not (tmp_path / "build").exists()

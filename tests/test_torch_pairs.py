@@ -284,7 +284,8 @@ def test_pair_S_matches_dense3_S(prob_mini_bal_t):
     dense3 path the earlier slices hold against the reference."""
     prob = prob_mini_bal_t
     f64 = torch.float64
-    pa_d = ProblemArrays.from_problem(prob, dtype=f64, schur="dense")
+    pa_d = ProblemArrays.from_problem(prob, dtype=f64, schur="dense",
+                                      backend="pallas")
     pa_p = ProblemArrays.from_problem(prob, dtype=f64, schur="pairs")
     cams, pts = (torch.from_numpy(a) for a in _state(prob, 6, np.float64))
     C, P, mu = prob.n_cams, prob.n_pts, 3.7
@@ -335,7 +336,8 @@ def test_from_problem_pairs_matches_reference(prob_synth):
     assert pa.cam_idx32.dtype == torch.int32
     np.testing.assert_array_equal(pa.pt_idx32.numpy(), tprob.pt_idx)
     assert pa.stream.perm.shape == (tprob.n_obs,)
-    dense = ProblemArrays.from_problem(tprob, schur="dense")
+    dense = ProblemArrays.from_problem(tprob, schur="dense",
+                                       backend="pallas")
     assert not dense.pairs and dense.valid_d is not None
     with pytest.raises(ValueError):
         ProblemArrays.from_problem(tprob, schur="blocks")

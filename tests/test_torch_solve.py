@@ -174,20 +174,13 @@ def test_checkpoint_point_order_mismatch_raises(prob_synth, tmp_path):
         _solve(prob_synth, _cfg(), checkpoint_dir=str(tmp_path))
 
 
-@pytest.mark.parametrize("case", ["polish", "s_precision_high", "xla"])
+@pytest.mark.parametrize("case", ["s_precision_high"])
 def test_next_slices_raise(prob_synth, case):
-    """The port ends where the f64 polish, the XLA-form path and the
-    "high" S precision begin: each raises NotImplementedError instead of
-    stopping quietly."""
-    kw, cfg = {}, _cfg()
-    if case == "polish":
-        kw = dict(polish_iters=2)
-    elif case == "s_precision_high":
-        cfg = cfg._replace(s_precision="high")
-    else:
-        cfg = cfg._replace(backend="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _solve(prob_synth, cfg, **kw)
+    """The port ends where the "high" S precision begins (ROADMAP Queue 1
+    item 18): it raises NotImplementedError instead of stopping quietly."""
+    cfg = _cfg()._replace(s_precision="high")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
+        _solve(prob_synth, cfg)
 
 
 def test_solve_without_device_needs_a_card(prob_synth, monkeypatch):
