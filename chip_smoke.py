@@ -4,9 +4,9 @@
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile    # also torch.profiler tables of three
                                        # LM and three TR iterations on the
-                                       # dense path (float32 and float64)
-                                       # and the pair path, under
-                                       # chiprun_out/
+                                       # dense path (float32 and float64,
+                                       # and ladybug138_real) and the pair
+                                       # path, under chiprun_out/
     python3 chip_smoke.py --cap        # also ms per LM iteration of the
                                        # dense and the pair encoding at
                                        # Dubrovnik-356's counts
@@ -26,7 +26,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      observation stream with the TR flags and with every flag, the J-gram
      at n = 1-4 in both direction forms and on an empty grid, the dense
      linearization with and without U; the trial-step residual with and
-     without its fused gain), with the tolerance stated, CUDA-event times
+     without its fused gain; these dense checks pass no occupancy table),
+     with the tolerance stated, CUDA-event times
      (median after warm-up), each kernel's device time from the profiler
      (for linearize_dense, gain_dense, jgram_dense and residual_l2 also
      their launches and torch ops per call, host time, and two calls
@@ -34,11 +35,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      (the larger of bytes over HBM bandwidth and flops over the float32
      rate) and, where one PyTorch call computes the same function, that
      call's time;
-  3. the dense main paths, each with the launch counters reset just before
-     and read just after: psba_tpu_torch.solve in float32 with the LM->TR
-     switch off (the LM path, three kernels), then with the default
-     SolverConfig (LM -> TR -> ..., five kernels; ms per LM and per TR
-     iteration and the GMW bootstrap's time printed);
+  2t. the (camera, tile) skip of the three dense kernels on both dense
+     problems, each clustered as the dense solve clusters it: the
+     138-camera one (93% of its cells observed) and ladybug138_real (below,
+     about 3%): masked kernel against masked plain version, against the
+     unmasked kernel (the same bits) and with an observed tile's bit
+     cleared; wrapper and device times masked and unmasked, the occupancy
+     before and after clustering, and the bound of the masked work;
+  3. the dense main paths (solve clusters the points on the dense
+     encoding), each with the launch counters reset just before and read
+     just after: psba_tpu_torch.solve in float32 with the LM->TR switch
+     off (the LM path, three kernels), then with the default SolverConfig
+     (LM -> TR -> ..., five kernels; ms per LM and per TR iteration and the
+     GMW bootstrap's time printed);
+  3r. the same two solves on ladybug138_real, which solve(schur="auto")
+     must put on the dense encoding by itself, then three LM iterations
+     (OptState.init + lm_run) in turns on the caller's point order without
+     the occupancy table and on the clustered order with it: final L2
+     within 1e-4, ms per iteration of each;
   3p. the covisibility-pair main path at Final-961's counts
      (final961_pairs: 961 cameras of the synthetic ring, 187,103 points,
      about 9 observations each), which solve(schur="auto") must put on the
@@ -117,6 +131,12 @@ PAIR_STREAM_FLOPS = LINEARIZE_STREAM_FLOPS + 99
 # observations per point. C * P = 180M cells, above the dense cap, so
 # schur="auto" takes the pair encoding.
 FINAL961 = dict(n_cams=961, n_pts=187_103, mean_obs=9.0)
+# The dense path at a real density, ladybug138_real: BAL Ladybug-138-19878's
+# camera and point counts on the synthetic ring, each point capped at
+# round(4.3) = 4 views (about 80k observations against BAL's 85,217, some 3%
+# of the 2.7M cells, where synthetic_problem(138, 19878) observes 93%).
+# C * P is under the dense cap, so schur="auto" takes the dense encoding.
+LADYBUG138_REAL = dict(n_cams=138, n_pts=19_878, mean_obs=4.3)
 # Dubrovnik-356's counts (80.7M cells, 5 observations per point): the --cap
 # measurement, which placed the dense cap (DENSE_MAX_ENTRIES) below it.
 DUBROVNIK356 = dict(n_cams=356, n_pts=226_730, mean_obs=5.0)
@@ -539,6 +559,167 @@ def check_pair_stream(prob, rargs, dev):
     out["max_abs_err_pairs"] = max(e for e, _ in errs)
     out["max_rel_err_pairs"] = max(r for _, r in errs)
     return out, calls
+
+
+def occupancy(prob, n_tiles):
+    """[C, n_tiles] bool: camera c observes a point of 128-point tile t,
+    from the observation list."""
+    import numpy as np
+
+    occ = np.zeros((prob.n_cams, n_tiles), bool)
+    occ[prob.cam_idx, np.asarray(prob.pt_idx) // 128] = True
+    return occ
+
+
+def check_tile_skip(label, prob, dev) -> dict:
+    """The three dense kernels with the occupancy table on `prob` clustered
+    as the dense solve clusters it (BAProblem.with_tile_point_order):
+    linearize_dense with and without U, gain_dense and jgram_dense at
+    n = 1, 2, 4. Each masked kernel is held to its masked plain version
+    (the phase-2 tolerances), to the unmasked kernel (the same bits; the
+    walks keep their order) and to itself on a second call; with one
+    observed tile's bit cleared, the kernel is held to the plain version
+    with that table (so the skip is taken). Then in turns (unmasked,
+    masked, masked, unmasked) the wrapper's CUDA-event median, and the
+    kernels' device time with L2 clean, masked and unmasked; the (camera,
+    tile) occupancy in the caller's order and clustered; and the bound of
+    the masked work (the tables read only in occupied pairs) beside the
+    unmasked one. Returns the summary for the kernels line."""
+    import numpy as np
+    import torch
+
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.ops import residual_dense as rd
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    f32 = torch.float32
+    C, P, O = prob.n_cams, prob.n_pts, prob.n_obs
+    Pp = ld.padded_points(P)
+    n_tiles = Pp // ld.PTILE
+    t0 = time.perf_counter()
+    p2, _newpos = prob.with_tile_point_order()
+    cluster_s = time.perf_counter() - t0
+    pa = ProblemArrays.from_problem(p2, dtype=f32, device=dev,
+                                    schur="dense")
+    mask = pa.tile_mask
+    need(np.array_equal(mask.cpu().numpy() > 0, occupancy(p2, n_tiles)),
+         f"{label}: tile_mask is not the occupancy")
+    occ_nat = float(occupancy(prob, n_tiles).mean())
+    occ = float(mask.double().mean())
+    # cells the masked kernels visit: each occupied pair's tile width
+    width = torch.clamp(P - ld.PTILE * torch.arange(n_tiles, device=dev),
+                        max=ld.PTILE)
+    live_cells = int((mask * width).sum())
+    print(f"[2t] {label}: C={C} P={P} O={O}, {O / (C * P):.4f} of the cells "
+          f"observed; occupied (camera, tile) pairs {occ_nat:.4f} in the "
+          f"caller's order, {occ:.4f} clustered ({int(mask.sum())} of "
+          f"{mask.numel()}; clustering took {cluster_s:.2f} s on the host)",
+          flush=True)
+    rng = np.random.default_rng(5)
+    f = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
+    cams = f(p2.cams + np.concatenate(
+        [1e-3 * rng.standard_normal((C, 3)),
+         1e-2 * rng.standard_normal((C, 3))], axis=1))
+    pts = f(p2.pts)
+    new = (cams + f(1e-4 * rng.standard_normal(cams.shape)),
+           pts + f(1e-3 * rng.standard_normal(pts.shape)))
+    base = (pa.K, pa.q0, cams, pts)
+    cut = mask.clone()
+    c_cut = C // 2
+    cut[c_cut, int(torch.nonzero(cut[c_cut])[0])] = 0
+    cam_bytes, mask_bytes = 4 * 15 * C, 4 * C * n_tiles
+    lin_idx = {True: (0, 1, 2, 3, 4, 6, 7), False: (0, 1, 2, 3, 4)}
+    lin_tol = {0: 1e-5, 1: 1e-5, 2: 1e-5, 3: 1e-4, 4: 1e-3, 6: 1e-4,
+               7: 1e-3}
+    lin_out = {0: "ZW0", 1: "ZW1", 2: "ZW2", 3: "Vp", 4: "gbp", 6: "U",
+               7: "ga"}
+    cases = {}
+    for want_u in (True, False):
+        idx = lin_idx[want_u]
+        cases["linearize_dense" + ("" if want_u else "[no U]")] = dict(
+            run=lambda fn, m, want_u=want_u, idx=idx: [
+                fn(*base, pa.obs_du, pa.obs_dv, pa.valid_d, want_u=want_u,
+                   kq=pa.kq, tile_mask=m)[i] for i in idx],
+            kernel=ld.linearize_dense, plain=ld.linearize_dense_plain,
+            tols=[lin_tol[i] for i in idx], outs=[lin_out[i] for i in idx],
+            names=("linearize_dense_kernel",
+                   "linearize_dense_finish_kernel"),
+            bytes_fixed=cam_bytes + 12 * P + 4 * (
+                18 * C * Pp + 12 * Pp + (42 * C if want_u else 0)),
+            table_bytes=12,
+            flops=(LINEARIZE_DENSE_FLOPS if want_u else
+                   LINEARIZE_DENSE_FLOPS - LINEARIZE_DENSE_U_FLOPS) * O)
+    cases["gain_dense"] = dict(
+        run=lambda fn, m: list(fn(*base, *new, pa.obs_du, pa.obs_dv,
+                                  pa.valid_d, kq=pa.kq, tile_mask=m)),
+        kernel=rd.gain_dense, plain=rd.gain_dense_plain, tols=[1e-3, 1e-4],
+        outs=["gain", "new_l2"], names=("gain_dense_kernel",), bytes_fixed=cam_bytes + 4 * 6 * C
+        + 24 * P + 8, table_bytes=12, flops=GAIN_DENSE_FLOPS * O)
+    for n in (1, 2, 4):
+        g = np.random.default_rng(200 + n)
+        dc = f(g.standard_normal((n, C, 6)))
+        dp = f(g.standard_normal((n, 3, Pp)))
+        cases[f"jgram_dense[n={n}]"] = dict(
+            run=lambda fn, m, dc=dc, dp=dp: [fn(*base, pa.valid_d, dc, dp,
+                                                kq=pa.kq, tile_mask=m)],
+            kernel=rd.jgram_dense, plain=rd.jgram_dense_plain, tols=[1e-4],
+            outs=["G"], names=("jgram_dense_kernel",),
+            bytes_fixed=cam_bytes + 12 * P + 4 * n * (6 * C + 3 * P)
+            + 4 * n * n, table_bytes=4, flops=jgram_flops(n) * O)
+    out = dict(C=C, P=P, O=O, observed_share=O / (C * P),
+               occupancy_natural=occ_nat, occupancy_clustered=occ,
+               occupied_pairs=int(mask.sum()), pairs=mask.numel(),
+               live_cells=live_cells, kernels={})
+    for name, k in cases.items():
+        kern = k["kernel"]
+        # the plain versions take no K | q0 rows
+        plain = lambda *a, kq=None, k=k, **kw: k["plain"](*a, **kw)
+        plain_of = lambda m, k=k, plain=plain: k["run"](plain, m)
+        masked, again = k["run"](kern, mask), k["run"](kern, mask)
+        free = k["run"](kern, None)
+        ref = plain_of(mask)
+        torch.cuda.synchronize()
+        errs = []
+        for o, a, b, c, r, tol in zip(k["outs"], masked, again, free, ref,
+                                      k["tols"]):
+            errs.append(compare(f"{name} {o} masked", a, r, tol))
+            need(bool((a == b).all()), f"{label} {name} {o}: two masked "
+                 "calls give different bits")
+            need(bool((a == c).all()), f"{label} {name} {o}: masked and "
+                 "unmasked kernels give different bits")
+        got, want = k["run"](kern, cut), plain_of(cut)
+        for o, a, r, tol in zip(k["outs"], got, want, k["tols"]):
+            compare(f"{name} {o} bit cleared", a, r, tol)
+        need(not all(bool((a == b).all()) for a, b in zip(got, masked)),
+             f"{label} {name}: clearing an observed tile changed nothing")
+        del masked, again, free, ref, got, want
+        call_m = lambda k=k: k["run"](kern, mask)
+        call_u = lambda k=k: k["run"](kern, None)
+        ms = [cuda_ms(c) for c in (call_u, call_m, call_m, call_u)]
+        dev_u = sum(clean_l2_kernel_ms(call_u, kern, k["names"]).values())
+        dev_m = sum(clean_l2_kernel_ms(call_m, kern, k["names"]).values())
+        b_u = bound(k["bytes_fixed"] + k["table_bytes"] * C * P, k["flops"])
+        b_m = bound(k["bytes_fixed"] + k["table_bytes"] * live_cells
+                    + mask_bytes, k["flops"])
+        row = dict(ms_unmasked=[ms[0], ms[3]], ms_masked=[ms[1], ms[2]],
+                   kernel_ms_clean_l2_unmasked=dev_u,
+                   kernel_ms_clean_l2_masked=dev_m,
+                   bound_ms_unmasked=b_u["bound_ms"],
+                   bound_by_unmasked=b_u["bound_by"],
+                   bound_ms_masked=b_m["bound_ms"],
+                   bound_by_masked=b_m["bound_by"],
+                   max_abs_err=max(e for e, _ in errs),
+                   max_rel_err=max(r for _, r in errs))
+        out["kernels"][name] = row
+        print(f"[2t] {label} {name}: kernels with L2 clean unmasked "
+              f"{dev_u:.4f} ms, masked {dev_m:.4f} ms; wrapper in turns "
+              f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} / {ms[3]:.4f} ms "
+              f"(unmasked, masked, masked, unmasked); bound unmasked "
+              f"{b_u['bound_ms']:.4f} ms ({b_u['bound_by']}), masked "
+              f"{b_m['bound_ms']:.4f} ms ({b_m['bound_by']}); masked = "
+              "unmasked bits, two calls the same bits, a cleared bit "
+              "honoured", flush=True)
+    return out
 
 
 def main(argv) -> int:
@@ -987,6 +1168,27 @@ def main(argv) -> int:
     del pa, gram, j2, rargs
     torch.cuda.empty_cache()
 
+    # ---- phase 2t: the (camera, tile) skip on both dense problems
+    lb, lb_s = ring_problem(**LADYBUG138_REAL)
+    print(f"[2t] ladybug138_real: C={lb.n_cams} P={lb.n_pts} O={lb.n_obs} "
+          f"({lb.n_obs / lb.n_pts:.2f} observations per point, "
+          f"{lb.n_obs / (lb.n_cams * lb.n_pts):.4f} of the cells observed; "
+          f"built in {lb_s:.1f} s)", flush=True)
+    need(lb.n_cams * lb.n_pts <= DENSE_MAX_ENTRIES,
+         "ladybug138_real is above the dense cap")
+    tile_skip = {label: check_tile_skip(label, p, dev)
+                 for label, p in (("synthetic138_dense", prob),
+                                  ("ladybug138_real", lb))}
+    for k in ("linearize_dense", "gain_dense", "jgram_dense"):
+        rows[k]["tile_skip"] = {
+            label: dict({f: v[f] for f in (
+                "observed_share", "occupancy_natural",
+                "occupancy_clustered")},
+                **{n: r for n, r in v["kernels"].items()
+                   if n.startswith(k)})
+            for label, v in tile_skip.items()}
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the main paths
     kern = {"linearize_dense": ld.linearize_dense, "gain_dense": rd.gain_dense,
             "spd_solve": chol.spd_solve,
@@ -1081,6 +1283,51 @@ def main(argv) -> int:
         need(launches[k] > 0, f"kernel {k} was not launched on the default "
              "path")
 
+    # 3r. the dense main path at Ladybug-138's real density
+    psba_tpu_torch.solve(lb, cfg_lm._replace(max_iters=2), dtype=f32,
+                         device=dev)   # warm-up
+    lb_runs = {}
+    for label, c, path in (("LM path", cfg_lm, lm_path),
+                           ("default", cfg, dense_path)):
+        gmw_log.clear()
+        reset()
+        r = psba_tpu_torch.solve(lb, c, dtype=f32, device=dev)
+        got = read()
+        per_r = per_phase_iterations(r)
+        ms_r = {ph: 1e3 * r.phase_seconds[ph] / per_r[ph] for ph in per_r}
+        gmw = [(n_, t_) for n_, t_, _, _ in gmw_log]
+        lb_runs[label] = dict(
+            lm_iter_ms=ms_r.get("lm"), tr_iter_ms=ms_r.get("tr"),
+            iterations=per_r, phases=r.phases, launches=got, gmw_ms=gmw,
+            initial_error=r.initial_error, final_error=r.final_error,
+            flag=r.flag_name)
+        print(f"[3r] ladybug138_real, {label}, schur='auto': {r}\n"
+              f"[3r]   phases {r.phases}; iterations per phase {per_r}\n"
+              f"[3r]   ms per LM iteration "
+              f"{ms_r.get('lm', float('nan')):.3f}, per TR iteration "
+              f"{ms_r.get('tr', float('nan')):.3f}\n"
+              f"[3r]   GMW bootstraps (n, ms, lambda) "
+              f"{[(n_, round(t_, 3), l_) for n_, t_, l_, _ in gmw_log]}\n"
+              f"[3r]   launches {got}\n"
+              f"[3r]   initial_error {r.initial_error:.6e} final_error "
+              f"{r.final_error:.6e} flag {r.flag_name}", flush=True)
+        need(np.isfinite(r.final_l2) and r.final_error < r.initial_error,
+             f"ladybug138_real, {label}: error did not decrease")
+        need(r.flag_name in ok_flags,
+             f"ladybug138_real, {label}: abnormal stop {r.flag_name}")
+        need(r.cams.shape == lb.cams.shape and r.pts.shape == lb.pts.shape
+             and np.isfinite(r.cams).all() and np.isfinite(r.pts).all(),
+             f"ladybug138_real, {label}: output parameters malformed")
+        for k in path:
+            need(got[k] > 0, f"ladybug138_real, {label}: kernel {k} not "
+                 "launched")
+        need(got["residual_l2"] == 0, f"ladybug138_real, {label}: the pair "
+             "path's residual_l2 launched, so schur='auto' did not take the "
+             "dense encoding")
+    need("tr" in lb_runs["default"]["iterations"],
+         "ladybug138_real, default: never entered TR")
+    lb_runs["lm3"] = lm_natural_vs_clustered(lb, cfg_lm, dev)
+
     # 3d. the float64 path: the default solve in float64 (the XLA form)
     f64 = torch.float64
     cfg64 = SolverConfig.for_dtype(f64, record_history=True)
@@ -1146,7 +1393,9 @@ def main(argv) -> int:
         peak_o = peak_gib(dev)
         n_main = res_o.phases[-2][1]
         main = np.load(os.path.join(ck, f"ckpt_{n_main:05d}.npz"))
-        pa64 = ProblemArrays.from_problem(prob, dtype=f64, device=dev)
+        # the checkpoint holds the points in the dense solve's order
+        pa64 = ProblemArrays.from_problem(prob.with_tile_point_order()[0],
+                                          dtype=f64, device=dev)
         start64 = float(OptState.init(
             pa64, torch.as_tensor(main["cams"], dtype=f64, device=dev),
             torch.as_tensor(main["pts"], dtype=f64, device=dev)).ex_l2)
@@ -1224,8 +1473,12 @@ def main(argv) -> int:
     need(all(v == 0 for v in launches3x.values()),
          f"float64 pairs launched a kernel: {launches3x}")
     if "--profile" in argv:
-        profile(prob, cfg, dev, "dense")
-        profile(prob, cfg64, dev, "dense", f64=True)
+        # the dense solve's point order
+        clustered = prob.with_tile_point_order()[0]
+        profile(clustered, cfg, dev, "dense")
+        profile(clustered, cfg64, dev, "dense", f64=True)
+        profile(lb.with_tile_point_order()[0], cfg, dev, "dense",
+                name="ladybug138_real")
         profile(big, cfg, dev, "pairs")
     del big
     torch.cuda.empty_cache()
@@ -1405,6 +1658,12 @@ def main(argv) -> int:
                     "iterations": res_lm.iterations,
                     "final_error": res_lm.final_error},
         "final961_pairs": pairs_line,
+        "ladybug138_real": dict(lb_runs, tile_skip={
+            label: {f: v[f] for f in (
+                "C", "P", "O", "observed_share", "occupancy_natural",
+                "occupancy_clustered", "occupied_pairs", "pairs",
+                "live_cells")}
+            for label, v in tile_skip.items()}),
         "float64": {
             "dense_default": {
                 "lm_iter_ms": ms64.get("lm"), "tr_iter_ms": ms64.get("tr"),
@@ -1423,6 +1682,76 @@ def main(argv) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def lm_natural_vs_clustered(prob, cfg_lm, dev) -> dict:
+    """Three LM iterations (OptState.init, then lm_run timed alone) on two
+    builds of `prob`: the caller's point order without the occupancy table
+    (a dataclasses.replace of its ProblemArrays) and the order the dense
+    solve clusters to, with the table; in turns (natural, clustered,
+    clustered, natural) after a warm-up of each. The final L2 of the two
+    builds must agree to 1e-4 (float32 sums in another order). Returns ms
+    per iteration of each run and both final L2."""
+    import torch
+
+    from psba_tpu_torch.ops import residual_dense as rd
+    from psba_tpu_torch.solvers.lm import lm_run
+    from psba_tpu_torch.solvers.types import (
+        OptState,
+        ProblemArrays,
+        resolve_damping,
+    )
+
+    f32 = torch.float32
+    c3 = cfg_lm._replace(max_iters=3)
+    p2, _newpos = prob.with_tile_point_order()
+    pa_nat = ProblemArrays.from_problem(prob, dtype=f32, device=dev)
+    builds = {
+        "natural": (dataclasses.replace(pa_nat, tile_mask=None), prob),
+        "clustered": (ProblemArrays.from_problem(p2, dtype=f32, device=dev),
+                      p2),
+    }
+    need(builds["clustered"][0].tile_mask is not None
+         and builds["natural"][0].tile_mask is None,
+         "lm3: the builds do not differ in their table")
+
+    def run(label):
+        pa, p = builds[label]
+        cams = torch.as_tensor(p.cams, dtype=f32, device=dev)
+        pts = torch.as_tensor(p.pts, dtype=f32, device=dev)
+        c = resolve_damping(c3, pa, cams, pts)
+        st = OptState.init(pa, cams, pts)
+        tries = rd.gain_dense.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = lm_run(pa, st, c)
+        l2 = float(st.ex_l2)
+        ms = 1e3 * (time.perf_counter() - t0) / max(st.itno, 1)
+        need(st.itno == 3, f"lm3 {label}: {st.itno} iterations")
+        return ms, l2, rd.gain_dense.launches - tries
+
+    for label in builds:
+        run(label)
+    out = {"natural": [], "clustered": []}
+    for label in ("natural", "clustered", "clustered", "natural"):
+        out[label].append(run(label))
+    l2n, l2c = out["natural"][0][1], out["clustered"][0][1]
+    rel = abs(l2c - l2n) / l2n
+    res = dict(ms_natural=[r[0] for r in out["natural"]],
+               ms_clustered=[r[0] for r in out["clustered"]],
+               tries_natural=out["natural"][0][2],
+               tries_clustered=out["clustered"][0][2],
+               final_l2_natural=l2n, final_l2_clustered=l2c, rel=rel)
+    print(f"[3r] lm_run x3 in turns: ms per LM iteration natural order, no "
+          f"table {res['ms_natural']}, clustered with the table "
+          f"{res['ms_clustered']}; tries {res['tries_natural']} / "
+          f"{res['tries_clustered']}; final L2 {l2n!r} / {l2c!r}, rel "
+          f"{rel:.3e} (tolerance 1e-4)", flush=True)
+    need(rel <= 1e-4, "lm3: natural and clustered builds disagree")
+    res["same_bits_each_build"] = (
+        all(r[1] == l2n for r in out["natural"])
+        and all(r[1] == l2c for r in out["clustered"]))
+    return res
 
 
 def cli_phase(prob, res64) -> dict:
@@ -1664,14 +1993,14 @@ def spread_measurement(mini, cfg, dev, runs: int = 100) -> None:
         json.dump(out, f)
 
 
-def profile(prob, cfg, dev, schur, f64=False) -> None:
+def profile(prob, cfg, dev, schur, f64=False, name=None) -> None:
     """torch.profiler tables of three LM iterations (lm_run alone) and three
     TR iterations (tr_run alone, entered with lambda = 1 so the table shows
     a steady TR iteration rather than the GMW bootstrap) on the `schur`
     encoding, in float32 (the kernel path) or with `f64` in float64 (the
     XLA form), each after a warm-up: kernel time by name (written to
     chiprun_out/profile_<schur>[_f64]_<lm|tr>3.txt) and the device's busy
-    share (printed)."""
+    share (printed); `name` replaces the encoding in the tag."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1685,7 +2014,8 @@ def profile(prob, cfg, dev, schur, f64=False) -> None:
 
     os.makedirs(OUT_DIR, exist_ok=True)
     dt = torch.float64 if f64 else torch.float32
-    tag = f"{schur}_f64" if f64 else schur
+    tag = name or schur
+    tag = f"{tag}_f64" if f64 else tag
     pa = ProblemArrays.from_problem(prob, dtype=dt, device=dev, schur=schur)
     cams = torch.as_tensor(prob.cams, dtype=dt, device=dev)
     pts = torch.as_tensor(prob.pts, dtype=dt, device=dev)
@@ -1702,7 +2032,7 @@ def profile(prob, cfg, dev, schur, f64=False) -> None:
         st.aux = aux
         return tr_run(pa, st, c3)
 
-    for name, run in (("lm", lm), ("tr", tr)):
+    for phase, run in (("lm", lm), ("tr", tr)):
         run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1722,11 +2052,11 @@ def profile(prob, cfg, dev, schur, f64=False) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.is_user_annotation
         ) / 1e3
-        summary = (f"[profile] {tag}: OptState.init + {name}_run, "
+        summary = (f"[profile] {tag}: OptState.init + {phase}_run, "
                    f"{out.itno} iterations: wall {wall_ms:.3f} ms (profiler "
                    f"off), device busy {busy:.3f} ms (profiler on), idle "
                    f"share {1 - busy / wall_ms:.3f}")
-        path = os.path.join(OUT_DIR, f"profile_{tag}_{name}3.txt")
+        path = os.path.join(OUT_DIR, f"profile_{tag}_{phase}3.txt")
         with open(path, "w") as f:
             f.write(summary + "\n" + table)
         print(f"{summary}; table in {os.path.relpath(path, REPO)}",

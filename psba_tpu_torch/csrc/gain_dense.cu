@@ -25,6 +25,14 @@
 //   record of the unit, by the same expression as cell_forward (the same
 //   bits), not once per cell; the records sit in two shared buffers that
 //   alternate between units, so one barrier per unit suffices;
+// - with an occupancy table (tile_mask [C, n_tiles] int32, bit (c, t) = 1
+//   iff camera c observes a point of tile t) a unit with no bit set is
+//   skipped before its table loads and its barrier, and a camera whose bit
+//   is 0 loads nothing and skips both forward models. A block reads the
+//   bits of all its units at its start, one unit a thread, so no unit
+//   waits for its own bits. The unit walk stays fixed, so every sum keeps
+//   its order: a skipped cell would have added exactly 0, and the result
+//   has the unmasked kernel's bits;
 // - each block reduces its sums with warp shuffles and writes one partial;
 //   the last block to take an integer ticket sums the partials in a fixed
 //   order and writes (gain, new_l2), then resets the ticket. One launch, no
@@ -39,6 +47,10 @@ constexpr int kThreads = 128;      // points per unit, one per thread
 constexpr int kCamChunk = 8;       // cameras per unit (unrolled)
 constexpr int kWarps = kThreads / 32;
 constexpr int kRec = kCamRec + 1;  // the camera record, then its s
+// units whose live bits a block reads up front (at the dense cap, 32M cells,
+// a block walks some 15 units on the H100; past kKeptUnits it reads the
+// bits unit by unit)
+constexpr int kKeptUnits = 64;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -68,6 +80,23 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
   }
 }
 
+// Bit g: camera c0 + g of unit u (a chunk of kCamChunk cameras by a tile of
+// kThreads points) observes a point of the tile; every camera of the chunk
+// without a table.
+__device__ __forceinline__ unsigned unit_live(const int* __restrict__ mask,
+                                              int u, int n_tiles, int C) {
+  const int cg = u / n_tiles;
+  const int c0 = cg * kCamChunk, t = u - cg * n_tiles;
+  const int nc = min(kCamChunk, C - c0);
+  unsigned live = 0u;
+#pragma unroll
+  for (int g = 0; g < kCamChunk; ++g)
+    if (g < nc &&
+        (mask == nullptr || mask[(size_t)(c0 + g) * n_tiles + t] != 0))
+      live |= 1u << g;
+  return live;
+}
+
 __global__ void __launch_bounds__(kThreads)
     gain_dense_kernel(const float* __restrict__ kq,
                       const float* __restrict__ cams_old,
@@ -76,26 +105,44 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ pts_new,
                       const float* __restrict__ obs_du,
                       const float* __restrict__ obs_dv,
-                      const float* __restrict__ valid, int C, int P, int clamp,
-                      int n_tiles, int n_units, float* __restrict__ part,
+                      const float* __restrict__ valid,
+                      const int* __restrict__ tile_mask, int C, int P,
+                      int clamp, int n_tiles, int n_units,
+                      float* __restrict__ part,
                       unsigned* __restrict__ ticket, float* __restrict__ out) {
   // [buffer][old, new][camera of the chunk][record]
   __shared__ float rec_s[2][2][kCamChunk][kRec];
   __shared__ float red[kWarps][2];
+  __shared__ unsigned live_s[kKeptUnits];  // bits of the block's units
   __shared__ bool last;
   const int tid = threadIdx.x;
   float gain = 0.0f, l2 = 0.0f;
   int buf = 0;
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x, buf ^= 1) {
+  // the live bits of the block's units, read up front (up to kKeptUnits)
+  const int kept =
+      (int)blockIdx.x < n_units
+          ? min(kKeptUnits,
+                (n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1)
+          : 0;
+  for (int i = tid; i < kept; i += kThreads)
+    live_s[i] = unit_live(tile_mask, blockIdx.x + i * gridDim.x, n_tiles, C);
+  __syncthreads();
+  int k = 0;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++k) {
     const int cg = u / n_tiles;
     const int c0 = cg * kCamChunk;
-    const int nc = min(kCamChunk, C - c0);
-    const int p = (u - cg * n_tiles) * kThreads + tid;
+    const int t = u - cg * n_tiles;
+    // bit g: camera c0 + g observes a point of the unit (uniform over the
+    // block, so a unit skipped here skips its barrier on every thread)
+    const unsigned cams_live =
+        k < kKeptUnits ? live_s[k] : unit_live(tile_mask, u, n_tiles, C);
+    if (cams_live == 0u) continue;
+    const int p = t * kThreads + tid;
     const bool in = p < P;
     float vm[kCamChunk], ou[kCamChunk], ov[kCamChunk];
 #pragma unroll
     for (int g = 0; g < kCamChunk; ++g) {
-      const bool live = in && g < nc;
+      const bool live = in && (cams_live >> g & 1u);
       const size_t cell = (size_t)(c0 + g) * P + p;
       vm[g] = live ? valid[cell] : 0.0f;
       ou[g] = live ? obs_du[cell] : 0.0f;
@@ -109,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
     const float xn3 = in ? pts_new[3 * p + 2] : 0.0f;
     if (tid < 2 * kCamChunk) {
       const int side = tid / kCamChunk, g = tid % kCamChunk;
-      if (g < nc) {
+      if (cams_live >> g & 1u) {
         float* r = rec_s[buf][side][g];
         const float* cam = (side ? cams_new : cams_old) + (c0 + g) * 6;
 #pragma unroll
@@ -122,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 #pragma unroll
     for (int g = 0; g < kCamChunk; ++g) {
-      if (g < nc) {
+      if (cams_live >> g & 1u) {
         const float* ro = rec_s[buf][0][g];
         const float* rn = rec_s[buf][1][g];
         float eou, eov, enu, env;
@@ -134,6 +181,7 @@ __global__ void __launch_bounds__(kThreads)
         l2 += enu * enu + env * env;
       }
     }
+    buf ^= 1;
   }
 
   block_sum2(gain, l2, red);
@@ -181,6 +229,7 @@ extern "C" int psba_gain_dense_resident_blocks() {
 }
 
 // kq [C, 9], cams_* [C, 6], pts_* [P, 3], obs_du/obs_dv/valid [C, P];
+// tile_mask [C, ceil(P / kThreads)] int32 or null (every unit visited);
 // max_blocks = psba_gain_dense_resident_blocks(); ws: int32 [1 + 2 *
 // max_blocks], zero in its first entry (the ticket, which the kernel leaves
 // at zero), block partials after it; out [2] = (gain, new_l2). Returns
@@ -188,9 +237,10 @@ extern "C" int psba_gain_dense_resident_blocks() {
 extern "C" int psba_gain_dense(const float* kq, const float* cams_old,
                                const float* pts_old, const float* cams_new,
                                const float* pts_new, const float* obs_du,
-                               const float* obs_dv, const float* valid, int C,
-                               int P, int clamp, int max_blocks, int* ws,
-                               float* out, void* stream) {
+                               const float* obs_dv, const float* valid,
+                               const int* tile_mask, int C, int P, int clamp,
+                               int max_blocks, int* ws, float* out,
+                               void* stream) {
   if (C < 1 || P < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
   const int n_tiles = (P + kThreads - 1) / kThreads;
   const int n_units = n_tiles * ((C + kCamChunk - 1) / kCamChunk);
@@ -198,8 +248,8 @@ extern "C" int psba_gain_dense(const float* kq, const float* cams_old,
   const int per_block = (n_units + max_blocks - 1) / max_blocks;
   const int grid = (n_units + per_block - 1) / per_block;
   gain_dense_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      kq, cams_old, pts_old, cams_new, pts_new, obs_du, obs_dv, valid, C, P,
-      clamp, n_tiles, n_units, reinterpret_cast<float*>(ws + 1),
-      reinterpret_cast<unsigned*>(ws), out);
+      kq, cams_old, pts_old, cams_new, pts_new, obs_du, obs_dv, valid,
+      tile_mask, C, P, clamp, n_tiles, n_units,
+      reinterpret_cast<float*>(ws + 1), reinterpret_cast<unsigned*>(ws), out);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,14 @@
 //   y_a = M omega_a + tau_a + R dp_a.
 // The mask multiplies 1/p3 once per cell. Unseen cells (valid = 0) have the
 // mask 0, point lanes p >= P are not visited, and a warp whose 32 cells are
-// all unseen skips the cell (exact: each would add 0).
+// all unseen skips the cell (exact: each would add 0). With an occupancy
+// table (tile_mask [C, n_tiles] int32, bit (c, t) = 1 iff camera c observes
+// a point of tile t) a block passes over the tiles whose kCamChunk bits are
+// all 0 before it loads anything of them, and a camera whose bit is 0 loads
+// no validity entry and skips its cells. A block reads the bits of all its
+// tiles at its start, beside its first tile's loads and its camera records,
+// so no table load waits for them. Every warp it skips the unmasked
+// kernel skips too, so the sums keep their order and their bits.
 //
 // What bounds it: it reads 4 bytes of the validity table per cell against
 // 93 + 44 n + 2 n (n + 1) float32 operations per observed cell (an FMA
@@ -51,6 +58,10 @@ constexpr int kMinBlocks = 7;
 constexpr int kCamChunk = 8;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 4;
+// tiles whose live bits a block reads up front (at the dense cap, 32M
+// cells, a block walks some 36 tiles on the H100; past kKeptTiles it reads
+// the bits tile by tile)
+constexpr int kKeptTiles = 64;
 constexpr int kMaxPairs = kMaxN * (kMaxN + 1) / 2;
 
 // camera record in shared memory, then omega_a | tau_a per direction
@@ -140,8 +151,22 @@ struct Tile {
   float vm[kCamChunk], x[3], dp[N][3];
 };
 
+// Bit g: camera c0 + g (g < nc) observes a point of tile t; all nc bits
+// without a table.
+__device__ __forceinline__ unsigned live_cams(const int* __restrict__ mask,
+                                              int t, int c0, int nc,
+                                              int n_tiles) {
+  unsigned live = 0u;
+#pragma unroll
+  for (int g = 0; g < kCamChunk; ++g)
+    if (g < nc &&
+        (mask == nullptr || mask[(size_t)(c0 + g) * n_tiles + t] != 0))
+      live |= 1u << g;
+  return live;
+}
+
 template <int N>
-__device__ __forceinline__ void load_tile(int t, int c0, int nc, int P,
+__device__ __forceinline__ void load_tile(int t, int c0, unsigned live, int P,
                                           const float* __restrict__ pts,
                                           const float* __restrict__ valid,
                                           const Dirs& dirs, Tile<N>& tl) {
@@ -149,7 +174,8 @@ __device__ __forceinline__ void load_tile(int t, int c0, int nc, int P,
   const bool in = p < P;
 #pragma unroll
   for (int g = 0; g < kCamChunk; ++g)
-    tl.vm[g] = in && g < nc ? valid[(size_t)(c0 + g) * P + p] : 0.0f;
+    tl.vm[g] = in && (live >> g & 1u) ? valid[(size_t)(c0 + g) * P + p]
+                                      : 0.0f;
 #pragma unroll
   for (int k = 0; k < 3; ++k) tl.x[k] = in ? pts[3 * p + k] : 0.0f;
 #pragma unroll
@@ -250,7 +276,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     jgram_dense_kernel(const float* __restrict__ kq,
                        const float* __restrict__ cams,
                        const float* __restrict__ pts,
-                       const float* __restrict__ valid, Dirs dirs, int C,
+                       const float* __restrict__ valid,
+                       const int* __restrict__ tile_mask, Dirs dirs, int C,
                        int P, int clamp, int n_chunks, int per_chunk,
                        int n_tiles, float* __restrict__ part,
                        unsigned* __restrict__ ticket, float* __restrict__ G) {
@@ -258,15 +285,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   constexpr int kRec = kCamFields + 6 * N;
   __shared__ float rec[kCamChunk][kRec];
   __shared__ float red[kWarps][kMaxPairs];
+  __shared__ unsigned live_s[kKeptTiles];  // bits of the block's tiles
   __shared__ bool last;
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x % n_chunks;
   const int c0 = chunk * kCamChunk;
   const int nc = min(kCamChunk, C - c0);
 
+  // the first tile's loads go out for all nc cameras beside the bits of the
+  // block's tiles (kept in shared memory up to kKeptTiles of them); a camera
+  // whose bit is 0 is then passed over in the cell loop
   int t = blockIdx.x / n_chunks;
   Tile<N> tl;
-  if (t < n_tiles) load_tile<N>(t, c0, nc, P, pts, valid, dirs, tl);
+  if (t < n_tiles) load_tile<N>(t, c0, (1u << nc) - 1u, P, pts, valid, dirs,
+                                tl);
+  const int kept =
+      t < n_tiles ? min(kKeptTiles, (n_tiles - 1 - t) / per_chunk + 1) : 0;
+  for (int i = tid; i < kept; i += kThreads)
+    live_s[i] = live_cams(tile_mask, t + i * per_chunk, c0, nc, n_tiles);
   if (tid < nc) camera_record<N>(kq, cams, dirs, c0 + tid, clamp != 0,
                                  rec[tid]);
   __syncthreads();
@@ -274,15 +310,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float acc[kPairs];
 #pragma unroll
   for (int q = 0; q < kPairs; ++q) acc[q] = 0.0f;
-  while (t < n_tiles) {
+  unsigned live = kept > 0 ? live_s[0] : 0u;
+  for (int i = 0; t < n_tiles;) {
 #pragma unroll
     for (int g = 0; g < kCamChunk; ++g) {
-      // nc is uniform over the block, the vote over the warp
-      if (g < nc && __any_sync(0xffffffffu, tl.vm[g] > 0.0f))
+      // live is uniform over the block, the vote over the warp
+      if ((live >> g & 1u) && __any_sync(0xffffffffu, tl.vm[g] > 0.0f))
         cell_gram<N>(rec[g], tl, tl.vm[g], acc);
     }
-    t += per_chunk;
-    if (t < n_tiles) load_tile<N>(t, c0, nc, P, pts, valid, dirs, tl);
+    // tiles without a live camera are passed over before any load
+    do {
+      ++i;
+      t += per_chunk;
+      if (t < n_tiles)
+        live = i < kKeptTiles ? live_s[i]
+                              : live_cams(tile_mask, t, c0, nc, n_tiles);
+    } while (t < n_tiles && live == 0u);
+    if (t < n_tiles) load_tile<N>(t, c0, live, P, pts, valid, dirs, tl);
   }
 
   float s = block_sum<kPairs>(acc, red);
@@ -325,12 +369,13 @@ int resident(int sms) {
 
 template <int N>
 int launch(int grid, cudaStream_t stream, const float* kq, const float* cams,
-           const float* pts, const float* valid, const Dirs& dirs, int C,
-           int P, int clamp, int n_chunks, int per_chunk, int n_tiles,
-           int* ws, float* G) {
+           const float* pts, const float* valid, const int* tile_mask,
+           const Dirs& dirs, int C, int P, int clamp, int n_chunks,
+           int per_chunk, int n_tiles, int* ws, float* G) {
   jgram_dense_kernel<N><<<grid, kThreads, 0, stream>>>(
-      kq, cams, pts, valid, dirs, C, P, clamp, n_chunks, per_chunk, n_tiles,
-      reinterpret_cast<float*>(ws + 1), reinterpret_cast<unsigned*>(ws), G);
+      kq, cams, pts, valid, tile_mask, dirs, C, P, clamp, n_chunks, per_chunk,
+      n_tiles, reinterpret_cast<float*>(ws + 1),
+      reinterpret_cast<unsigned*>(ws), G);
   return (int)cudaGetLastError();
 }
 
@@ -356,7 +401,9 @@ extern "C" int psba_jgram_dense_resident_blocks(int n) {
   }
 }
 
-// kq [C, 9], cams [C, 6], pts [P, 3], valid [C, P]; direction a < n <= 4:
+// kq [C, 9], cams [C, 6], pts [P, 3], valid [C, P]; tile_mask
+// [C, ceil(P / kThreads)] int32 or null (every tile visited); direction
+// a < n <= 4:
 // camera part dc[a] [C, 6], point part dp[a] with entry (k, p) at
 // dp[a][k * sk[a] + p * sp[a]] (planar [3, Pd]: sk = Pd, sp = 1; row-major
 // [P, 3]: sk = 1, sp = 3; any strides of a view);
@@ -367,7 +414,8 @@ extern "C" int psba_jgram_dense_resident_blocks(int n) {
 // cudaGetLastError().
 extern "C" int psba_jgram_dense(const float* kq, const float* cams,
                                 const float* pts, const float* valid,
-                                const float* dc0, const float* dc1,
+                                const int* tile_mask, const float* dc0,
+                                const float* dc1,
                                 const float* dc2, const float* dc3,
                                 const float* dp0, const float* dp1,
                                 const float* dp2, const float* dp3, int sk0,
@@ -395,16 +443,16 @@ extern "C" int psba_jgram_dense(const float* kq, const float* cams,
   const cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
     case 1:
-      return launch<1>(grid, s, kq, cams, pts, valid, dirs, C, P, clamp,
-                       n_chunks, per_chunk, n_tiles, ws, G);
+      return launch<1>(grid, s, kq, cams, pts, valid, tile_mask, dirs, C,
+                       P, clamp, n_chunks, per_chunk, n_tiles, ws, G);
     case 2:
-      return launch<2>(grid, s, kq, cams, pts, valid, dirs, C, P, clamp,
-                       n_chunks, per_chunk, n_tiles, ws, G);
+      return launch<2>(grid, s, kq, cams, pts, valid, tile_mask, dirs, C,
+                       P, clamp, n_chunks, per_chunk, n_tiles, ws, G);
     case 3:
-      return launch<3>(grid, s, kq, cams, pts, valid, dirs, C, P, clamp,
-                       n_chunks, per_chunk, n_tiles, ws, G);
+      return launch<3>(grid, s, kq, cams, pts, valid, tile_mask, dirs, C,
+                       P, clamp, n_chunks, per_chunk, n_tiles, ws, G);
     default:
-      return launch<4>(grid, s, kq, cams, pts, valid, dirs, C, P, clamp,
-                       n_chunks, per_chunk, n_tiles, ws, G);
+      return launch<4>(grid, s, kq, cams, pts, valid, tile_mask, dirs, C,
+                       P, clamp, n_chunks, per_chunk, n_tiles, ws, G);
   }
 }

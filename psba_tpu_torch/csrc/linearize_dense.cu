@@ -30,6 +30,15 @@
 // - U and ga (27 values per camera) reduce over the warp with shuffles, over
 //   the block's four warps in shared memory, and are written as one partial
 //   per point block [Pp/128, C, 27];
+// - with an occupancy table (tile_mask [C, Pp/128] int32, bit (c, t) = 1
+//   iff camera c observes a point of tile t), a camera whose bit is 0 for
+//   the block's tile skips its cell model, its table loads and its V / gb /
+//   U / ga work, and writes its ZW cells as zeros (the outputs are not
+//   zeroed beforehand; the Pallas kernel pre-zeroes its ZW rows for the
+//   same reason); its U / ga partial is written as 0. The skip is exact:
+//   every cell of such a pair is unseen and contributes exactly 0, so the
+//   outputs equal the unmasked kernel's. It saves arithmetic and the 12
+//   table bytes a cell, not the ZW writes that bound the kernel;
 // - the finishing kernel sums the partials, each output in index order, and
 //   writes the final layouts: one thread per (point, V / gb entry) over the
 //   chunks, and for U / ga a block per 32 camera entries whose eight warps
@@ -62,13 +71,15 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ pts,
                            const float* __restrict__ obs_du,
                            const float* __restrict__ obs_dv,
-                           const float* __restrict__ valid, int C, int P,
+                           const float* __restrict__ valid,
+                           const int* __restrict__ tile_mask, int C, int P,
                            int Pp, int clamp, float* __restrict__ zw0,
                            float* __restrict__ zw1, float* __restrict__ zw2,
                            float* __restrict__ vpart,
                            float* __restrict__ upart) {
   __shared__ float cam_s[kCamChunk][kCamRec];
   __shared__ float u_s[kWarps][kCamChunk][kUPack];
+  __shared__ bool live_s[kCamChunk];  // the camera observes a point here
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int p = blockIdx.x * kThreads + tid;  // < Pp by construction
@@ -79,6 +90,9 @@ __global__ void __launch_bounds__(kThreads)
     const int c = c0 + g;
     cam_s[g][k] = k < 9 ? kq[c * 9 + k] : cams[c * 6 + (k - 9)];
   }
+  if (tid < nc)
+    live_s[tid] = tile_mask == nullptr ||
+                  tile_mask[(size_t)(c0 + tid) * gridDim.x + blockIdx.x] != 0;
   __syncthreads();
 
   // padded point lanes (p >= P) see a zero point and a zero mask: every
@@ -92,13 +106,17 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int g = 0; g < nc; ++g) {
     const int c = c0 + g;
-    const size_t cell = (size_t)c * P + p;
-    const float vmask = in ? valid[cell] : 0.0f;
-    const float ou = in ? obs_du[cell] : 0.0f;
-    const float ov = in ? obs_dv[cell] : 0.0f;
-    float A[2][6], B[2][3], exu, exv;
-    cell_linearize(cam_s[g], x1, x2, x3, ou, ov, vmask, clamp != 0, A, B, exu,
-                   exv);
+    // uniform over the block: a skipped camera writes zero ZW cells only
+    const bool live = live_s[g];
+    float A[2][6] = {}, B[2][3] = {}, exu = 0.0f, exv = 0.0f;
+    if (live) {
+      const size_t cell = (size_t)c * P + p;
+      const float vmask = in ? valid[cell] : 0.0f;
+      const float ou = in ? obs_du[cell] : 0.0f;
+      const float ov = in ? obs_dv[cell] : 0.0f;
+      cell_linearize(cam_s[g], x1, x2, x3, ou, ov, vmask, clamp != 0, A, B,
+                     exu, exv);
+    }
 
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -108,6 +126,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < 6; ++i)
         row[(size_t)i * Pp] = A[0][i] * B[0][k] + A[1][i] * B[1][k];
     }
+    if (!live) continue;
     int r = 0;
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -144,8 +163,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < nc * kUPack; i += kThreads) {
       const int g = i / kUPack, r = i % kUPack;
       float s = 0.0f;
+      if (live_s[g]) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += u_s[w][g][r];
+        for (int w = 0; w < kWarps; ++w) s += u_s[w][g][r];
+      }
       upart[((size_t)blockIdx.x * C + c0 + g) * kUPack + r] = s;
     }
   }
@@ -229,6 +250,7 @@ extern "C" int psba_linearize_dense_ptile() { return kThreads; }
 extern "C" int psba_linearize_dense_cam_chunk() { return kCamChunk; }
 
 // kq [C, 9] (K | q0), cams [C, 6], pts [P, 3], obs_du/obs_dv/valid [C, P];
+// tile_mask [C, Pp / kThreads] int32 or null (every pair visited);
 // outputs zw0, zw1, zw2 [6C, Pp] each, Vp [3, 3, Pp], gbp [3, Pp] and,
 // unless U is null, U [C, 6, 6] and ga [C, 6]. scratch: n_cg * 9 * Pp
 // floats (n_cg = ceil(C / kCamChunk)), and with U (Pp / kThreads) * C * 27
@@ -236,8 +258,9 @@ extern "C" int psba_linearize_dense_cam_chunk() { return kCamChunk; }
 extern "C" int psba_linearize_dense(const float* kq, const float* cams,
                                     const float* pts, const float* obs_du,
                                     const float* obs_dv, const float* valid,
-                                    int C, int P, int Pp, int clamp,
-                                    float* zw0, float* zw1, float* zw2,
+                                    const int* tile_mask, int C, int P,
+                                    int Pp, int clamp, float* zw0,
+                                    float* zw1, float* zw2,
                                     float* Vp, float* gbp, float* U, float* ga,
                                     float* scratch, void* stream) {
   if (C < 1 || P < 1 || Pp < P || Pp % kThreads != 0 ||
@@ -247,8 +270,8 @@ extern "C" int psba_linearize_dense(const float* kq, const float* cams,
   float* upart = U == nullptr ? nullptr : scratch + (size_t)n_cg * 9 * Pp;
   const cudaStream_t s = (cudaStream_t)stream;
   linearize_dense_kernel<<<dim3(n_tiles, n_cg), kThreads, 0, s>>>(
-      kq, cams, pts, obs_du, obs_dv, valid, C, P, Pp, clamp, zw0, zw1, zw2,
-      scratch, upart);
+      kq, cams, pts, obs_du, obs_dv, valid, tile_mask, C, P, Pp, clamp, zw0,
+      zw1, zw2, scratch, upart);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_vblocks = (9 * Pp + kFinishThreads - 1) / kFinishThreads;

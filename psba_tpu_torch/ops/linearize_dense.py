@@ -15,6 +15,17 @@ Pp is P padded to the kernel's point tile PTILE; padded columns have ZW and
 gb exactly 0 and V the identity, so they pass through the Schur solve as
 inert, always-invertible blocks.
 
+The three dense kernels (this one, gain_dense and jgram_dense) take an
+optional occupancy table, `tile_mask` [C, Pp / PTILE] int32
+(`build_tile_mask`): bit (c, t) is 1 iff camera c observes a point in
+columns [t * PTILE, (t + 1) * PTILE). A (camera, tile) pair whose bit is 0
+is skipped; the skip is exact, since every cell of such a pair is unseen and
+contributes exactly 0. It removes work once the points are clustered so
+that each camera's observations fill few tiles
+(problem.BAProblem.with_tile_point_order). The plain versions apply the
+mask by multiplying the validity table with it (`masked_valid`), so a mask
+that clears an observed tile changes both alike.
+
 `linearize_dense` is the entry point. On CUDA tensors it launches the
 hand-written kernel csrc/linearize_dense.cu (float32); on CPU tensors it
 runs `linearize_dense_plain`, the same function in plain PyTorch, which is
@@ -49,6 +60,47 @@ _SYM3 = [0, 1, 2, 1, 3, 4, 2, 4, 5]   # 6 upper V entries -> 3x3
 def padded_points(P: int) -> int:
     """P rounded up to the kernel's point tile."""
     return ((P + PTILE - 1) // PTILE) * PTILE
+
+
+def tile_slot_order(P: int) -> np.ndarray:
+    """Planar positions in the dense kernels' tile-visit order: a block
+    covers PTILE consecutive points, so the order is 0..P-1 (points
+    assigned to slots in this order fill the tiles one after another)."""
+    return np.arange(P)
+
+
+def build_tile_mask(valid_d: torch.Tensor) -> torch.Tensor:
+    """[C, Pp / PTILE] int32 occupancy table of the validity table valid_d
+    [C, P], on its device: 1 where camera c observes a point of tile t."""
+    C, P = valid_d.shape
+    Pp = padded_points(P)
+    occ = F.pad(valid_d, (0, Pp - P)).reshape(C, Pp // PTILE, PTILE)
+    return (occ.amax(dim=2) > 0).to(torch.int32)
+
+
+def masked_valid(valid_d, tile_mask):
+    """valid_d [C, P] times the occupancy table expanded to cells: valid_d
+    itself (the same bits) under the table build_tile_mask gives, and
+    valid_d with the cells of every cleared (camera, tile) pair zeroed."""
+    if tile_mask is None:
+        return valid_d
+    P = valid_d.shape[1]
+    cells = tile_mask.to(valid_d.dtype).repeat_interleave(PTILE, dim=1)
+    return valid_d * cells[:, :P]
+
+
+def mask_pointer(what, tile_mask, dev, C, P):
+    """The address of a CUDA tile_mask for a launcher (None for no mask);
+    raises unless it is a contiguous int32 [C, Pp / PTILE] tensor on dev."""
+    if tile_mask is None:
+        return None
+    n_tiles = padded_points(P) // PTILE
+    if (tile_mask.device != dev or tile_mask.dtype != torch.int32
+            or tile_mask.shape != (C, n_tiles)
+            or not tile_mask.is_contiguous()):
+        raise ValueError(f"{what}: tile_mask must be a contiguous int32 "
+                         f"[{C}, {n_tiles}] tensor on {dev}")
+    return tile_mask.data_ptr()
 
 
 def dense_obs_tables(blk_idx, obs, n_obs, dtype=np.float32):
@@ -164,10 +216,11 @@ def _cell_model(cam, x1, x2, x3, obsu, obsv, vmask, clamp):
 
 
 def linearize_dense_plain(K, q0, cams, pts, obs_du, obs_dv, valid_d,
-                          clamp=False, want_u=False):
+                          clamp=False, want_u=False, tile_mask=None):
     """Plain PyTorch version of the dense-grid linearization (any dtype,
     any device). Returns (ZW0, ZW1, ZW2, Vp, gbp, Pp) and, with want_u,
     (..., U, ga) as well."""
+    valid_d = masked_valid(valid_d, tile_mask)
     C, P = valid_d.shape
     Pp = padded_points(P)
     pad = Pp - P
@@ -210,7 +263,7 @@ def _kernel():
         raise RuntimeError("linearize_dense.cu tile constants differ from "
                            "psba_tpu_torch.ops.linearize_dense")
     fn = lib.psba_linearize_dense
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + (
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + (
         [ctypes.c_void_p] * 9
     )
     fn.restype = ctypes.c_int
@@ -218,7 +271,7 @@ def _kernel():
 
 
 def linearize_dense(K, q0, cams, pts, obs_du, obs_dv, valid_d, clamp=False,
-                    want_u=False, kq=None):
+                    want_u=False, kq=None, tile_mask=None):
     """Dense-grid linearization; see the module docstring for the outputs.
 
     CPU tensors run the plain version. CUDA tensors (float32, contiguous)
@@ -226,11 +279,13 @@ def linearize_dense(K, q0, cams, pts, obs_du, obs_dv, valid_d, clamp=False,
     finishes the V / gb and U / ga sums) and count one call: the wrapper
     only allocates the outputs (one buffer, cut into views).
     `kq` is the [C, 9] camera rows K | q0 (ProblemArrays.kq), built here
-    when not given. Every cell is visited: the reference's (camera, tile)
-    skip is exact and not ported yet."""
+    when not given. With `tile_mask` (build_tile_mask) the grid kernel
+    skips the (camera, tile) pairs whose bit is 0 and writes their ZW
+    cells as zeros."""
     if valid_d.device.type == "cpu":
         return linearize_dense_plain(K, q0, cams, pts, obs_du, obs_dv,
-                                     valid_d, clamp=clamp, want_u=want_u)
+                                     valid_d, clamp=clamp, want_u=want_u,
+                                     tile_mask=tile_mask)
     if kq is None:
         kq = torch.cat([K, q0], dim=1)
     dev = _build.cuda_inputs(
@@ -241,6 +296,7 @@ def linearize_dense(K, q0, cams, pts, obs_du, obs_dv, valid_d, clamp=False,
     if (kq.shape != (C, 9) or cams.shape != (C, 6) or pts.shape != (P, 3)
             or obs_du.shape != (C, P) or obs_dv.shape != (C, P)):
         raise ValueError("linearize_dense: inconsistent shapes")
+    mask = mask_pointer("linearize_dense", tile_mask, dev, C, P)
     fn = _kernel()
     Pp = padded_points(P)
     n_tiles, n_cg = Pp // PTILE, -(-C // CAM_CHUNK)
@@ -252,8 +308,8 @@ def linearize_dense(K, q0, cams, pts, obs_du, obs_dv, valid_d, clamp=False,
     U, ga = out[5:7] if want_u else (None, None)
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), obs_du.data_ptr(),
-        obs_dv.data_ptr(), valid_d.data_ptr(), C, P, Pp, int(bool(clamp)),
-        *(t.data_ptr() for t in out[:5]),
+        obs_dv.data_ptr(), valid_d.data_ptr(), mask, C, P, Pp,
+        int(bool(clamp)), *(t.data_ptr() for t in out[:5]),
         None if U is None else U.data_ptr(),
         None if ga is None else ga.data_ptr(), out[-1].data_ptr(),
         _build.stream(dev),

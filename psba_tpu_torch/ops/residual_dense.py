@@ -23,7 +23,9 @@ block form x^T [[U, W], [W^T, V]] x cancels in float32 when |J x| is small.
 
 `gain_dense` / `jgram_dense` launch csrc/gain_dense.cu / csrc/jgram_dense.cu
 on CUDA tensors (float32) and run `gain_dense_plain` / `jgram_dense_plain`
-on CPU tensors.
+on CPU tensors. Both take the occupancy table `tile_mask` of
+ops.linearize_dense (build_tile_mask) and skip the (camera, tile) pairs
+whose bit is 0; the plain versions apply it to the validity table.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from psba_tpu_torch.ops.linearize_dense import (
     _cell_model,
     camera_rows,
     cell_residual,
+    mask_pointer,
+    masked_valid,
 )
 
 # largest number of directions jgram_dense takes (TR uses 1 and 2)
@@ -47,8 +51,9 @@ JGRAM_MAX_N = 4
 
 
 def gain_dense_plain(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv,
-                     valid_d, clamp=False):
+                     valid_d, clamp=False, tile_mask=None):
     """Plain PyTorch version: returns (gain, new_l2) as 0-d tensors."""
+    valid_d = masked_valid(valid_d, tile_mask)
     xo = pts.T
     xn = new_pts.T
     eou, eov = cell_residual(camera_rows(K, q0, cams), xo[0:1], xo[1:2],
@@ -74,7 +79,7 @@ def _kernel():
         raise RuntimeError("gain_dense: no block of the kernel fits the "
                            "device")
     fn = lib.psba_gain_dense
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + (
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + (
         [ctypes.c_void_p] * 3
     )
     fn.restype = ctypes.c_int
@@ -82,16 +87,18 @@ def _kernel():
 
 
 def gain_dense(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv, valid_d,
-               clamp=False, kq=None):
+               clamp=False, kq=None, tile_mask=None):
     """Trial-step (gain, new_l2) on the dense grid, as 0-d tensors.
 
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     launch csrc/gain_dense.cu, which sums to the two scalars itself, and
     count one launch. `kq` is the [C, 9] camera rows K | q0
-    (ProblemArrays.kq), built here when not given."""
+    (ProblemArrays.kq), built here when not given; `tile_mask` as for
+    linearize_dense."""
     if valid_d.device.type == "cpu":
         return gain_dense_plain(K, q0, cams, pts, new_cams, new_pts, obs_du,
-                                obs_dv, valid_d, clamp=clamp)
+                                obs_dv, valid_d, clamp=clamp,
+                                tile_mask=tile_mask)
     if kq is None:
         kq = torch.cat([K, q0], dim=1)
     dev = _build.cuda_inputs(
@@ -104,14 +111,15 @@ def gain_dense(K, q0, cams, pts, new_cams, new_pts, obs_du, obs_dv, valid_d,
             or new_pts.shape != (P, 3) or obs_du.shape != (C, P)
             or obs_dv.shape != (C, P)):
         raise ValueError("gain_dense: inconsistent shapes")
+    mask = mask_pointer("gain_dense", tile_mask, dev, C, P)
     fn, blocks = _kernel()
     ws = _build.workspace("gain_dense", dev, 1 + 2 * blocks)
     out = torch.empty((2,), dtype=torch.float32, device=dev)
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), new_cams.data_ptr(),
         new_pts.data_ptr(), obs_du.data_ptr(), obs_dv.data_ptr(),
-        valid_d.data_ptr(), C, P, int(bool(clamp)), blocks, ws.data_ptr(),
-        out.data_ptr(), _build.stream(dev),
+        valid_d.data_ptr(), mask, C, P, int(bool(clamp)), blocks,
+        ws.data_ptr(), out.data_ptr(), _build.stream(dev),
     )
     _build.check(err, "gain_dense")
     gain_dense.launches += 1
@@ -146,10 +154,11 @@ def _directions(dirs_c, dirs_p):
 
 
 def jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
-                      clamp=False):
+                      clamp=False, tile_mask=None):
     """Plain PyTorch version: G [n, n] with G[a, b] = <J x_a, J x_b> over the
     observed cells of the [C, P] grid; the directions in either form of
     jgram_dense (padded lanes of a stacked dirs_p are ignored)."""
+    valid_d = masked_valid(valid_d, tile_mask)
     C, P = valid_d.shape
     x = pts.T
     zero = torch.zeros_like(valid_d)
@@ -179,7 +188,7 @@ def _jgram_kernel():
         raise RuntimeError("jgram_dense.cu constants differ from "
                            "psba_tpu_torch.ops.residual_dense")
     fn = lib.psba_jgram_dense
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -197,7 +206,7 @@ def _jgram_blocks(n: int) -> int:
 
 
 def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False,
-                kq=None):
+                kq=None, tile_mask=None):
     """G [n, n] = <J x_a, J x_b> on the dense grid (coefficient-free: the
     TR scalars of B = 2 J^T J are 2 G). The directions come stacked,
     dirs_c [n, C, 6] and dirs_p [n, 3, Pd] with Pd >= P (the planar width
@@ -207,11 +216,11 @@ def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False,
 
     CPU tensors run the plain version. CUDA tensors (float32, the camera
     parts contiguous, n <= JGRAM_MAX_N) launch csrc/jgram_dense.cu, which
-    writes the symmetric G itself, and count one launch; `kq` as for
-    gain_dense."""
+    writes the symmetric G itself, and count one launch; `kq` and
+    `tile_mask` as for gain_dense."""
     if valid_d.device.type == "cpu":
         return jgram_dense_plain(K, q0, cams, pts, valid_d, dirs_c, dirs_p,
-                                 clamp=clamp)
+                                 clamp=clamp, tile_mask=tile_mask)
     if kq is None:
         kq = torch.cat([K, q0], dim=1)
     dev = _build.cuda_inputs("jgram_dense", kq=kq, cams=cams, pts=pts,
@@ -219,6 +228,7 @@ def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False,
     C, P = valid_d.shape
     if kq.shape != (C, 9) or cams.shape != (C, 6) or pts.shape != (P, 3):
         raise ValueError("jgram_dense: inconsistent shapes")
+    mask = mask_pointer("jgram_dense", tile_mask, dev, C, P)
     # per direction: the camera part's address, the point part's address
     # and the strides of its entry (k, p), taken without a torch op
     if isinstance(dirs_c, torch.Tensor):
@@ -260,7 +270,7 @@ def jgram_dense(K, q0, cams, pts, valid_d, dirs_c, dirs_p, clamp=False,
     G = torch.empty((n, n), dtype=torch.float32, device=dev)
     err = fn(
         kq.data_ptr(), cams.data_ptr(), pts.data_ptr(), valid_d.data_ptr(),
-        *dcs, *pad, *dps, *pad, *sks, *zero, *sps, *zero,
+        mask, *dcs, *pad, *dps, *pad, *sks, *zero, *sps, *zero,
         n, C, P, int(bool(clamp)), blocks, ws.data_ptr(), ws.numel(),
         G.data_ptr(), _build.stream(dev),
     )

@@ -31,9 +31,9 @@ Observations are kept sorted by point index (the text format's natural
 order), so per-point reductions are segment-sums over contiguous ranges.
 
 This is the JAX package's host-side container, copied so the port carries
-its own; the tile point order (the JAX package's
-BAProblem.with_tile_point_order) is left out, and the port keeps the
-caller's point order.
+its own. `with_tile_point_order` clusters covisible points into the dense
+kernels' point tiles (128 consecutive points in the port, not the JAX
+package's strided TPU tiles), which `solve` does on the dense encoding.
 """
 
 from __future__ import annotations
@@ -120,6 +120,45 @@ class BAProblem:
                 self.pt_idx, self.cam_idx, self.n_cams, self.n_pts
             ),
         )
+
+    def with_tile_point_order(self) -> tuple["BAProblem", np.ndarray]:
+        """Reorder points so covisible points cluster into the dense
+        kernels' point tiles.
+
+        Points are sorted by (min, max) observing camera and assigned to
+        the planar positions in the kernels' tile-visit order
+        (ops.linearize_dense.tile_slot_order), so each camera's
+        observations fill few (camera, tile) pairs and the kernels' exact
+        occupancy skip (build_tile_mask) removes the empty ones.
+        Observations are re-sorted (stably) to keep them sorted by point.
+
+        Returns (problem, newpos) with newpos[i] = the new index of
+        original point i; map an optimized pts array back with
+        pts_original_order = pts_new_order[newpos]."""
+        from psba_tpu_torch.ops.linearize_dense import tile_slot_order
+
+        P, C = self.n_pts, self.n_cams
+        mincam = np.full(P, C, np.int64)
+        np.minimum.at(mincam, self.pt_idx, self.cam_idx)
+        maxcam = np.zeros(P, np.int64)
+        np.maximum.at(maxcam, self.pt_idx, self.cam_idx)
+        order = np.lexsort((maxcam, mincam))     # point ids, sorted
+        newpos = np.empty(P, np.int64)
+        newpos[order] = tile_slot_order(P)
+        pts_new = np.empty_like(self.pts)
+        pts_new[newpos] = self.pts
+        pt_idx_new = newpos[self.pt_idx].astype(self.pt_idx.dtype)
+        o = np.argsort(pt_idx_new, kind="stable")
+        return dataclasses.replace(
+            self,
+            pts=pts_new,
+            obs=self.obs[o],
+            cam_idx=self.cam_idx[o],
+            pt_idx=pt_idx_new[o],
+            obs_cov=None if self.obs_cov is None else self.obs_cov[o],
+            # cached encodings are keyed on the old order
+            pair_o1=None, pair_o2=None, pair_bucket=None, blk_idx=None,
+        ), newpos
 
     def summary(self) -> str:
         n_pairs = 0 if self.pair_o1 is None else len(self.pair_o1)

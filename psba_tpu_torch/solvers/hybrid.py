@@ -3,10 +3,13 @@ psba_tpu.solvers.hybrid).
 
 `solve` picks the Schur encoding (dense, or the covisibility pairs above
 DENSE_MAX_ENTRIES cells or on request) and the path (SolverConfig.backend:
-by default the kernel path in float32, the XLA form in float64), runs
-damping resolution and OptState.init, then alternates the LM phase
-(solvers.lm) and the TR phase (solvers.tr) until either returns a flag
-other than the switch requests. Each switch starts the new phase with fresh
+by default the kernel path in float32, the XLA form in float64); on the
+dense encoding it clusters the points into the dense kernels' tiles
+(BAProblem.with_tile_point_order) in either dtype, and maps them back to
+the caller's order at the end. It runs damping resolution and
+OptState.init, then alternates the LM phase (solvers.lm) and the TR
+phase (solvers.tr) until either returns a flag other than the switch
+requests. Each switch starts the new phase with fresh
 phase scalars, as the reference calls levmar() / trust_region() afresh.
 
 `polish_iters` > 0 appends the float64 polish after a run in another
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from psba_tpu_torch.solvers.types import (
     OptState,
     ProblemArrays,
     SolverConfig,
+    dense_encoding,
     resolve_damping,
     torch_dtype,
 )
@@ -129,13 +134,22 @@ def solve(
     encoding of the reduced camera system: "dense", "pairs" (the
     covisibility pair list), or "auto" (dense up to
     solvers.types.DENSE_MAX_ENTRIES camera x point cells, pairs above).
-    Points keep the caller's order (point_order "natural") under both."""
+    The dense encoding works on the points clustered into the dense
+    kernels' tiles, and checkpoints hold them in that order (point_order
+    "tile-<crc32 of the map>"); the pair encoding keeps the caller's
+    order ("natural"). A resume refuses a checkpoint of another order.
+    SolveResult.pts comes back in the caller's order."""
     dt = torch_dtype(problem.pts.dtype if dtype is None else dtype)
     device = _device(device)
     if start not in ("lm", "tr"):
         raise ValueError(f"start={start!r}: 'lm' or 'tr'")
     cfg = config or SolverConfig.for_dtype(dt)
-    point_order = "natural"
+    point_map = None
+    if dense_encoding(schur, problem.n_cams, problem.n_pts):
+        # newpos[i] = the solver's index of the caller's point i
+        problem, point_map = problem.with_tile_point_order()
+    point_order = ("natural" if point_map is None else
+                   f"tile-{zlib.crc32(np.ascontiguousarray(point_map)):08x}")
     pa = ProblemArrays.from_problem(problem, dtype=dt, device=device,
                                     schur=schur, backend=cfg.backend)
     as_t = lambda a, d=dt: torch.as_tensor(np.asarray(a), dtype=d,
@@ -280,9 +294,12 @@ def solve(
 
     final_l2 = float(state.ex_l2)
     n_obs = problem.n_obs
+    pts_out = state.pts.cpu().numpy()
+    if point_map is not None:
+        pts_out = pts_out[point_map]
     return SolveResult(
         cams=state.cams.cpu().numpy(),
-        pts=state.pts.cpu().numpy(),
+        pts=pts_out,
         resolved_damping=cfg.damping,
         initial_l2=initial_l2,
         final_l2=final_l2,

@@ -166,7 +166,7 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
         else:
             ZW0, ZW1, ZW2, Vp, gbp, _Pp, U, ga = linearize_dense(
                 pa.K, pa.q0, cams, pts, *tables, clamp=clamp, want_u=True,
-                kq=pa.kq,
+                kq=pa.kq, tile_mask=pa.tile_mask,
             )
             ZW3 = (ZW0, ZW1, ZW2)
             gb = gbp[:, :P].T
@@ -234,7 +234,7 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             else:
                 gain_t, _new_l2 = gain_dense(
                     pa.K, pa.q0, cams, pts, new_cams, new_pts, *tables,
-                    clamp=clamp, kq=pa.kq,
+                    clamp=clamp, kq=pa.kq, tile_mask=pa.tile_mask,
                 )
             if marq:
                 den_c = torch.sum(dpa * (mu_t * Dc * dpa + ga))

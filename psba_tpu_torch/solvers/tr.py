@@ -203,7 +203,8 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     def jgram(c, p, dirs_c, dirs_p):
         # the directions as sequences of [C, 6] / [P, 3] parts, read in place
         return 2.0 * jgram_dense(pa.K, pa.q0, c, p, pa.valid_d, dirs_c,
-                                 dirs_p, clamp=clamp, kq=pa.kq)
+                                 dirs_p, clamp=clamp, kq=pa.kq,
+                                 tile_mask=pa.tile_mask)
 
     def jx(A, B, x_c, x_p):
         return jmultiply(A, B, x_c, x_p, pa.cam_idx, pa.pt_idx)
@@ -235,7 +236,8 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 tables=pa.stream,
             )
             ZW0, ZW1, ZW2, Vp1, gbp1, _Pp = linearize_dense(
-                pa.K, pa.q0, cams, pts, *grid, clamp=clamp, kq=pa.kq)
+                pa.K, pa.q0, cams, pts, *grid, clamp=clamp, kq=pa.kq,
+                tile_mask=pa.tile_mask)
             U = 2.0 * U1
             Vp = 2.0 * Vp1
             ZW3 = (2.0 * ZW0, 2.0 * ZW1, 2.0 * ZW2)
@@ -351,7 +353,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             else:
                 gain_t, act_t = gain_dense(pa.K, pa.q0, cams, pts, new_cams,
                                            new_pts, *grid, clamp=clamp,
-                                           kq=pa.kq)
+                                           kq=pa.kq, tile_mask=pa.tile_mask)
                 ptBp_t = jgram(cams, pts, [p_c], [p_p])[0, 0]
             # the one host read of the try
             gain, act, gtp, ptBp, p_norm = torch.stack([

@@ -107,6 +107,15 @@ def use_kernels(cfg: SolverConfig, dtype) -> bool:
     return kernels_for(cfg.backend, dtype)
 
 
+def dense_encoding(schur: str, n_cams: int, n_pts: int) -> bool:
+    """True when `schur` ("dense", "pairs", or "auto": dense up to
+    DENSE_MAX_ENTRIES camera x point cells) takes the dense encoding."""
+    if schur not in ("auto", "dense", "pairs"):
+        raise ValueError(f"schur={schur!r}")
+    return schur == "dense" or (
+        schur == "auto" and n_cams * n_pts <= DENSE_MAX_ENTRIES)
+
+
 def _diag_minmax(K, q0, cams, pts, cam_idx, pt_idx, clamp):
     """max / min-positive of diag(J^T J) from one Jacobian probe."""
     from psba_tpu_torch.core.jacobian import jacobians
@@ -166,6 +175,9 @@ class ProblemArrays:
     obs_du: torch.Tensor | None = None   # [C, P] measurements (u), 0 unseen
     obs_dv: torch.Tensor | None = None   # [C, P] measurements (v), 0 unseen
     valid_d: torch.Tensor | None = None  # [C, P] 1.0 where observed
+    # (camera, point tile) occupancy of valid_d for the dense kernels' exact
+    # skip (ops.linearize_dense.build_tile_mask); None visits every pair
+    tile_mask: torch.Tensor | None = None  # [C, Pp / PTILE] int32
     # pair encoding: observation pairs of one point, sorted by their bucket
     # cam(o1) * C + cam(o2); bucket C*C marks padding
     pair_o1: torch.Tensor | None = None      # [N] int64
@@ -186,13 +198,11 @@ class ProblemArrays:
         DENSE_MAX_ENTRIES camera x point cells, pairs above). `backend`
         (SolverConfig.backend, resolved in `dtype`) says which path will
         read them: the kernel path also gets the stream tables of the
-        camera-ordered walk and, dense, the grid tables; the XLA form gets
-        neither, so a float64 dense solve does not hold the grid."""
-        if schur not in ("auto", "dense", "pairs"):
-            raise ValueError(f"schur={schur!r}")
-        if schur == "auto":
-            schur = ("dense" if prob.n_cams * prob.n_pts <= DENSE_MAX_ENTRIES
-                     else "pairs")
+        camera-ordered walk and, dense, the grid tables with their
+        occupancy table; the XLA form gets neither, so a float64 dense
+        solve does not hold the grid."""
+        schur = ("dense" if dense_encoding(schur, prob.n_cams, prob.n_pts)
+                 else "pairs")
         dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)
         kernels = kernels_for(backend, dt)
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -203,12 +213,15 @@ class ProblemArrays:
             enc = dict(blk_idx=i(prob.blk_idx))
             if kernels:
                 from psba_tpu_torch.ops.linearize_dense import (
+                    build_tile_mask,
                     dense_obs_tables,
                 )
 
                 du, dv, vd = dense_obs_tables(prob.blk_idx, prob.obs,
                                               prob.n_obs, dtype=np_dtype(dt))
-                enc.update(obs_du=f(du), obs_dv=f(dv), valid_d=f(vd))
+                valid_d = f(vd)
+                enc.update(obs_du=f(du), obs_dv=f(dv), valid_d=valid_d,
+                           tile_mask=build_tile_mask(valid_d))
         else:
             prob = prob.with_pairs()
             enc = dict(pair_o1=i(prob.pair_o1), pair_o2=i(prob.pair_o2),

@@ -743,3 +743,97 @@ def test_polish_on_cuda_follows_the_kernels(cuda):
         k: mid[k] - before[k] for k in _KERNELS}
     assert pol.phases[:-1] == main.phases and pol.phases[-1][0] == "lm64"
     assert pol.iterations == main.iterations + 2
+
+
+def _clustered_ring(cuda):
+    """A sparse problem clustered as the dense solve clusters it: 20 ring
+    cameras, 3,000 points at about four views each (some 60% of the
+    (camera, tile) pairs occupied), perturbed from a seed; float32 tensors
+    on the card with their tile mask, and a second state."""
+    import os
+    import tempfile
+
+    from psba_tpu_torch.io import synthesize_points_for_cams, synthetic_problem
+    from psba_tpu_torch.io.sba_text import write_cams
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    ring = synthetic_problem(n_cams=20, n_pts=50, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cams.txt")
+        write_cams(path, ring.K, ring.q0, ring.cams)
+        prob = synthesize_points_for_cams(path, n_pts=3000, mean_obs=4.3,
+                                          look_sign=1.0, seed=0)
+    prob, _newpos = prob.with_tile_point_order()
+    pa = ProblemArrays.from_problem(prob, dtype=torch.float32, device=cuda)
+    assert 0 < int(pa.tile_mask.sum()) < pa.tile_mask.numel()
+    rng = np.random.default_rng(11)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    C = prob.n_cams
+    cams = f(prob.cams + np.concatenate(
+        [1e-3 * rng.standard_normal((C, 3)),
+         1e-2 * rng.standard_normal((C, 3))], axis=1))
+    pts = f(prob.pts)
+    new = (cams + f(1e-4 * rng.standard_normal(cams.shape)),
+           pts + f(1e-3 * rng.standard_normal(pts.shape)))
+    return pa, cams, pts, new
+
+
+_MASKED = ["linearize_u", "linearize", "gain", "jgram1", "jgram2", "jgram4"]
+
+
+@pytest.mark.parametrize("kernel", _MASKED)
+def test_dense_kernels_take_the_tile_mask(cuda, kernel):
+    """Each dense kernel with the occupancy table on a clustered sparse
+    problem: against its plain version with the same table (the
+    tolerances above), the same bits as the kernel without the table, and
+    with one observed tile's bit cleared against the plain version with
+    that table (so the skip is taken, and honoured exactly)."""
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.ops import residual_dense as rd
+
+    pa, cams, pts, new = _clustered_ring(cuda)
+    C, P = pa.valid_d.shape
+    base = (pa.K, pa.q0, cams, pts)
+    if kernel.startswith("linearize"):
+        want_u = kernel == "linearize_u"
+        tols = {0: 1e-5, 1: 1e-5, 2: 1e-5, 3: 1e-4, 4: 1e-3, 6: 1e-4,
+                7: 1e-3}
+
+        def run(fn, mask):
+            out = fn(*base, pa.obs_du, pa.obs_dv, pa.valid_d, want_u=want_u,
+                     tile_mask=mask)
+            return [out[i] for i in tols if i < len(out)]
+
+        kern, plain = ld.linearize_dense, ld.linearize_dense_plain
+        tol = [t for i, t in tols.items() if i < (8 if want_u else 6)]
+    elif kernel == "gain":
+        def run(fn, mask):
+            return list(fn(*base, *new, pa.obs_du, pa.obs_dv, pa.valid_d,
+                           tile_mask=mask))
+
+        kern, plain, tol = rd.gain_dense, rd.gain_dense_plain, [1e-3, 1e-4]
+    else:
+        n = int(kernel[-1])
+        rng = np.random.default_rng(n)
+        dc = torch.as_tensor(rng.standard_normal((n, C, 6)),
+                             dtype=torch.float32, device=cuda)
+        dp = torch.as_tensor(rng.standard_normal((n, 3, P)),
+                             dtype=torch.float32, device=cuda)
+
+        def run(fn, mask):
+            return [fn(*base, pa.valid_d, dc, dp, tile_mask=mask)]
+
+        kern, plain, tol = rd.jgram_dense, rd.jgram_dense_plain, [1e-4]
+    masked = run(kern, pa.tile_mask)
+    free = run(kern, None)
+    ref = run(plain, pa.tile_mask)
+    torch.cuda.synchronize()
+    for a, b, r, t in zip(masked, free, ref, tol):
+        assert bool((a == b).all())
+        assert _rel(a, r) < t
+    cut = pa.tile_mask.clone()
+    cut[3, int(torch.nonzero(cut[3])[0])] = 0
+    got, want = run(kern, cut), run(plain, cut)
+    for a, r, t in zip(got, want, tol):
+        assert _rel(a, r) < t
+    assert not all(bool((a == b).all()) for a, b in zip(got, masked))

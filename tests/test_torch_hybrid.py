@@ -11,10 +11,13 @@ lambda, because the reduced camera system S is singular at lambda = 0 (the
 seven gauge directions of bundle adjustment). Its pivots along those
 directions are float32 rounding noise: a 1e-7 relative perturbation of S
 moves the bootstrapped lambda by a factor of five on mini_bal. So the two
-packages' lambdas differ and so do the TR steps after them; the test holds
-the phases through the end of the first TR phase, the LM rows before it
-(ex_l2 to 1e-4, float32 sums in another order), a positive bootstrapped
-lambda in both, and final_l2 to 1e-3. TR rows themselves are held to 1e-4
+packages' lambdas differ and so do the TR steps after them, and with them
+the length of the first TR phase: on the 6-camera problem its steps sit at
+the float32 floor (rho of +-inf or -7), and the dense solve's point order
+alone moves its end by one iteration. The test holds the phases through
+the switch to TR, the LM rows before it (ex_l2 to 1e-4, float32 sums in
+another order), a positive bootstrapped lambda in both, and final_l2 to
+1e-3. TR rows themselves are held to 1e-4
 from a state with lambda > 0 in tests/test_torch_tr.py.
 """
 
@@ -67,7 +70,7 @@ def test_default_solve_matches_reference(name):
     assert res.resolved_damping == ref.resolved_damping == "additive"
     names = [ph for ph, _, _ in ref.phases]
     k = names.index("tr")
-    assert res.phases[:k + 1] == ref.phases[:k + 1]
+    assert res.phases[:k] == ref.phases[:k] and res.phases[k][0] == "tr"
     tr_start = ref.phases[k - 1][1]
     np.testing.assert_array_equal(res.history[:tr_start, 0],
                                   ref.history[:tr_start, 0])
@@ -75,7 +78,7 @@ def test_default_solve_matches_reference(name):
                                ref.history[:tr_start, 1], rtol=1e-4)
     # TR rows carry a delta, LM rows NaN; the bootstrap fired in both
     assert np.isnan(res.history[:tr_start, 4]).all()
-    assert not np.isnan(res.history[tr_start:ref.phases[k][1], 4]).any()
+    assert not np.isnan(res.history[tr_start:res.phases[k][1], 4]).any()
     print("first TR lambda: port", res.history[tr_start, 3], "reference",
           ref.history[tr_start, 3])
     assert res.history[tr_start, 3] > 0 and ref.history[tr_start, 3] > 0
