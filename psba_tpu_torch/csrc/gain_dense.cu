@@ -29,10 +29,10 @@
 //   iff camera c observes a point of tile t) a unit with no bit set is
 //   skipped before its table loads and its barrier, and a camera whose bit
 //   is 0 loads nothing and skips both forward models. A block reads the
-//   bits of all its units at its start, one unit a thread, so no unit
-//   waits for its own bits. The unit walk stays fixed, so every sum keeps
-//   its order: a skipped cell would have added exactly 0, and the result
-//   has the unmasked kernel's bits;
+//   bits of its next kBatch units into shared memory, one unit a thread,
+//   then walks them, so no unit waits for its own bits. The unit walk
+//   stays fixed, so every sum keeps its order: a skipped cell would have
+//   added exactly 0, and the result has the unmasked kernel's bits;
 // - each block reduces its sums with warp shuffles and writes one partial;
 //   the last block to take an integer ticket sums the partials in a fixed
 //   order and writes (gain, new_l2), then resets the ticket. One launch, no
@@ -47,10 +47,10 @@ constexpr int kThreads = 128;      // points per unit, one per thread
 constexpr int kCamChunk = 8;       // cameras per unit (unrolled)
 constexpr int kWarps = kThreads / 32;
 constexpr int kRec = kCamRec + 1;  // the camera record, then its s
-// units whose live bits a block reads up front (at the dense cap, 32M cells,
-// a block walks some 15 units on the H100; past kKeptUnits it reads the
-// bits unit by unit)
-constexpr int kKeptUnits = 64;
+// units whose live bits a block reads at once (at the dense cap, 32M cells,
+// a block walks some 15 units on the H100)
+constexpr int kBatch = 64;
+static_assert(kBatch <= kThreads, "one unit's bits a thread");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -113,29 +113,25 @@ __global__ void __launch_bounds__(kThreads)
   // [buffer][old, new][camera of the chunk][record]
   __shared__ float rec_s[2][2][kCamChunk][kRec];
   __shared__ float red[kWarps][2];
-  __shared__ unsigned live_s[kKeptUnits];  // bits of the block's units
+  __shared__ unsigned live_s[kBatch];  // bits of the batch's units
   __shared__ bool last;
   const int tid = threadIdx.x;
   float gain = 0.0f, l2 = 0.0f;
   int buf = 0;
-  // the live bits of the block's units, read up front (up to kKeptUnits)
-  const int kept =
-      (int)blockIdx.x < n_units
-          ? min(kKeptUnits,
-                (n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1)
-          : 0;
-  for (int i = tid; i < kept; i += kThreads)
-    live_s[i] = unit_live(tile_mask, blockIdx.x + i * gridDim.x, n_tiles, C);
-  __syncthreads();
-  int k = 0;
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++k) {
+  for (int u = blockIdx.x, k = 0; u < n_units; u += gridDim.x, ++k) {
+    if (k % kBatch == 0) {  // the bits of this unit and the next ones
+      __syncthreads();      // (the last batch's bits are read)
+      const int ui = u + tid * gridDim.x;
+      if (tid < kBatch && ui < n_units)
+        live_s[tid] = unit_live(tile_mask, ui, n_tiles, C);
+      __syncthreads();
+    }
     const int cg = u / n_tiles;
     const int c0 = cg * kCamChunk;
     const int t = u - cg * n_tiles;
     // bit g: camera c0 + g observes a point of the unit (uniform over the
     // block, so a unit skipped here skips its barrier on every thread)
-    const unsigned cams_live =
-        k < kKeptUnits ? live_s[k] : unit_live(tile_mask, u, n_tiles, C);
+    const unsigned cams_live = live_s[k % kBatch];
     if (cams_live == 0u) continue;
     const int p = t * kThreads + tid;
     const bool in = p < P;

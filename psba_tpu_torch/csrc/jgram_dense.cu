@@ -23,10 +23,10 @@
 // table (tile_mask [C, n_tiles] int32, bit (c, t) = 1 iff camera c observes
 // a point of tile t) a block passes over the tiles whose kCamChunk bits are
 // all 0 before it loads anything of them, and a camera whose bit is 0 loads
-// no validity entry and skips its cells. A block reads the bits of all its
-// tiles at its start, beside its first tile's loads and its camera records,
-// so no table load waits for them. Every warp it skips the unmasked
-// kernel skips too, so the sums keep their order and their bits.
+// no validity entry and skips its cells. A block reads the bits of its next
+// kBatch tiles into shared memory (the first batch beside its camera
+// records) and then walks them. Every warp it skips the unmasked kernel
+// skips too, so the sums keep their order and their bits.
 //
 // What bounds it: it reads 4 bytes of the validity table per cell against
 // 93 + 44 n + 2 n (n + 1) float32 operations per observed cell (an FMA
@@ -58,10 +58,10 @@ constexpr int kMinBlocks = 7;
 constexpr int kCamChunk = 8;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 4;
-// tiles whose live bits a block reads up front (at the dense cap, 32M
-// cells, a block walks some 36 tiles on the H100; past kKeptTiles it reads
-// the bits tile by tile)
-constexpr int kKeptTiles = 64;
+// tiles whose live bits a block reads at once (at the dense cap, 32M
+// cells, a block walks some 36 tiles on the H100)
+constexpr int kBatch = 64;
+static_assert(kBatch <= kThreads, "one tile's bits a thread");
 constexpr int kMaxPairs = kMaxN * (kMaxN + 1) / 2;
 
 // camera record in shared memory, then omega_a | tau_a per direction
@@ -285,48 +285,39 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   constexpr int kRec = kCamFields + 6 * N;
   __shared__ float rec[kCamChunk][kRec];
   __shared__ float red[kWarps][kMaxPairs];
-  __shared__ unsigned live_s[kKeptTiles];  // bits of the block's tiles
+  __shared__ unsigned live_s[kBatch];  // bits of the batch's tiles
   __shared__ bool last;
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x % n_chunks;
   const int c0 = chunk * kCamChunk;
   const int nc = min(kCamChunk, C - c0);
-
-  // the first tile's loads go out for all nc cameras beside the bits of the
-  // block's tiles (kept in shared memory up to kKeptTiles of them); a camera
-  // whose bit is 0 is then passed over in the cell loop
-  int t = blockIdx.x / n_chunks;
-  Tile<N> tl;
-  if (t < n_tiles) load_tile<N>(t, c0, (1u << nc) - 1u, P, pts, valid, dirs,
-                                tl);
-  const int kept =
-      t < n_tiles ? min(kKeptTiles, (n_tiles - 1 - t) / per_chunk + 1) : 0;
-  for (int i = tid; i < kept; i += kThreads)
-    live_s[i] = live_cams(tile_mask, t + i * per_chunk, c0, nc, n_tiles);
+  // read after the first batch's barrier
   if (tid < nc) camera_record<N>(kq, cams, dirs, c0 + tid, clamp != 0,
                                  rec[tid]);
-  __syncthreads();
 
   float acc[kPairs];
 #pragma unroll
   for (int q = 0; q < kPairs; ++q) acc[q] = 0.0f;
-  unsigned live = kept > 0 ? live_s[0] : 0u;
-  for (int i = 0; t < n_tiles;) {
+  for (int t = blockIdx.x / n_chunks, i = 0; t < n_tiles;
+       t += per_chunk, ++i) {
+    if (i % kBatch == 0) {  // the bits of this tile and the next ones
+      __syncthreads();      // (the last batch's bits are read)
+      const int ti = t + tid * per_chunk;
+      if (tid < kBatch && ti < n_tiles)
+        live_s[tid] = live_cams(tile_mask, ti, c0, nc, n_tiles);
+      __syncthreads();
+    }
+    // a tile without a live camera is passed over before any load; live is
+    // uniform over the block, the vote over the warp
+    const unsigned live = live_s[i % kBatch];
+    if (live == 0u) continue;
+    Tile<N> tl;
+    load_tile<N>(t, c0, live, P, pts, valid, dirs, tl);
 #pragma unroll
     for (int g = 0; g < kCamChunk; ++g) {
-      // live is uniform over the block, the vote over the warp
       if ((live >> g & 1u) && __any_sync(0xffffffffu, tl.vm[g] > 0.0f))
         cell_gram<N>(rec[g], tl, tl.vm[g], acc);
     }
-    // tiles without a live camera are passed over before any load
-    do {
-      ++i;
-      t += per_chunk;
-      if (t < n_tiles)
-        live = i < kKeptTiles ? live_s[i]
-                              : live_cams(tile_mask, t, c0, nc, n_tiles);
-    } while (t < n_tiles && live == 0u);
-    if (t < n_tiles) load_tile<N>(t, c0, live, P, pts, valid, dirs, tl);
   }
 
   float s = block_sum<kPairs>(acc, red);

@@ -745,11 +745,11 @@ def test_polish_on_cuda_follows_the_kernels(cuda):
     assert pol.iterations == main.iterations + 2
 
 
-def _clustered_ring(cuda):
+def _clustered_ring(cuda, n_pts=3000):
     """A sparse problem clustered as the dense solve clusters it: 20 ring
-    cameras, 3,000 points at about four views each (some 60% of the
-    (camera, tile) pairs occupied), perturbed from a seed; float32 tensors
-    on the card with their tile mask, and a second state."""
+    cameras, n_pts points at about four views each (some 60% of the
+    (camera, tile) pairs occupied at 3,000), perturbed from a seed; float32
+    tensors on the card with their tile mask, and a second state."""
     import os
     import tempfile
 
@@ -761,7 +761,7 @@ def _clustered_ring(cuda):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "cams.txt")
         write_cams(path, ring.K, ring.q0, ring.cams)
-        prob = synthesize_points_for_cams(path, n_pts=3000, mean_obs=4.3,
+        prob = synthesize_points_for_cams(path, n_pts=n_pts, mean_obs=4.3,
                                           look_sign=1.0, seed=0)
     prob, _newpos = prob.with_tile_point_order()
     pa = ProblemArrays.from_problem(prob, dtype=torch.float32, device=cuda)
@@ -781,17 +781,15 @@ def _clustered_ring(cuda):
 _MASKED = ["linearize_u", "linearize", "gain", "jgram1", "jgram2", "jgram4"]
 
 
-@pytest.mark.parametrize("kernel", _MASKED)
-def test_dense_kernels_take_the_tile_mask(cuda, kernel):
-    """Each dense kernel with the occupancy table on a clustered sparse
-    problem: against its plain version with the same table (the
-    tolerances above), the same bits as the kernel without the table, and
-    with one observed tile's bit cleared against the plain version with
-    that table (so the skip is taken, and honoured exactly)."""
+def _check_tile_mask(cuda, kernel, pa, cams, pts, new):
+    """The dense kernel `kernel` (one of _MASKED) with the occupancy table:
+    against its plain version with the same table (the tolerances above),
+    the same bits as the kernel without the table, and with one observed
+    tile's bit cleared against the plain version with that table (so the
+    skip is taken, and honoured exactly)."""
     from psba_tpu_torch.ops import linearize_dense as ld
     from psba_tpu_torch.ops import residual_dense as rd
 
-    pa, cams, pts, new = _clustered_ring(cuda)
     C, P = pa.valid_d.shape
     base = (pa.K, pa.q0, cams, pts)
     if kernel.startswith("linearize"):
@@ -837,3 +835,24 @@ def test_dense_kernels_take_the_tile_mask(cuda, kernel):
     for a, r, t in zip(got, want, tol):
         assert _rel(a, r) < t
     assert not all(bool((a == b).all()) for a, b in zip(got, masked))
+
+
+@pytest.mark.parametrize("kernel", _MASKED)
+def test_dense_kernels_take_the_tile_mask(cuda, kernel):
+    """Each dense kernel with the occupancy table on a clustered sparse
+    problem (_check_tile_mask)."""
+    _check_tile_mask(cuda, kernel, *_clustered_ring(cuda))
+
+
+@pytest.mark.parametrize("kernel", ["gain", "jgram1", "jgram2", "jgram4"])
+def test_tile_mask_read_in_batches(cuda, kernel, monkeypatch):
+    """gain_dense and jgram_dense read the table's bits in batches of 64
+    units / tiles a block. With one block in the grid (jgram_dense: one a
+    camera chunk) each block walks more than one batch on 10,000 clustered
+    points (79 tiles; gain_dense 237 units), and _check_tile_mask holds."""
+    from psba_tpu_torch.ops import residual_dense as rd
+
+    real = rd._kernel
+    monkeypatch.setattr(rd, "_kernel", lambda: (real()[0], 1))
+    monkeypatch.setattr(rd, "_jgram_blocks", lambda n: 1)
+    _check_tile_mask(cuda, kernel, *_clustered_ring(cuda, n_pts=10_000))

@@ -13,12 +13,13 @@ directions are float32 rounding noise: a 1e-7 relative perturbation of S
 moves the bootstrapped lambda by a factor of five on mini_bal. So the two
 packages' lambdas differ and so do the TR steps after them, and with them
 the length of the first TR phase: on the 6-camera problem its steps sit at
-the float32 floor (rho of +-inf or -7), and the dense solve's point order
-alone moves its end by one iteration. The test holds the phases through
-the switch to TR, the LM rows before it (ex_l2 to 1e-4, float32 sums in
-another order), a positive bootstrapped lambda in both, and final_l2 to
-1e-3. TR rows themselves are held to 1e-4
-from a state with lambda > 0 in tests/test_torch_tr.py.
+the float32 floor (rho of +-inf or -7), and float32 rounding alone (both
+packages solve the same clustered problem at these sizes) moves its end by
+one iteration. The test holds the phases through the switch to TR, the
+first TR phase's name and flag with its end within one iteration, the LM
+rows before it (ex_l2 to 1e-4, float32 sums in another order), a positive
+bootstrapped lambda in both, and final_l2 to 1e-3. TR rows themselves are
+held to 1e-4 from a state with lambda > 0 in tests/test_torch_tr.py.
 """
 
 import dataclasses
@@ -70,7 +71,10 @@ def test_default_solve_matches_reference(name):
     assert res.resolved_damping == ref.resolved_damping == "additive"
     names = [ph for ph, _, _ in ref.phases]
     k = names.index("tr")
-    assert res.phases[:k] == ref.phases[:k] and res.phases[k][0] == "tr"
+    assert res.phases[:k] == ref.phases[:k]
+    assert res.phases[k][0] == ref.phases[k][0]
+    assert res.phases[k][2] == ref.phases[k][2]
+    assert abs(res.phases[k][1] - ref.phases[k][1]) <= 1
     tr_start = ref.phases[k - 1][1]
     np.testing.assert_array_equal(res.history[:tr_start, 0],
                                   ref.history[:tr_start, 0])
