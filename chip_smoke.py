@@ -82,6 +82,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      pair, `python -m psba_tpu_torch.cli` on it in float64 (the default)
      and with --f32 --polish 3, each in a subprocess; the points file's
      read time with the native and with the numpy reader;
+  7. the sharded solve (psba_tpu_torch.parallel): 7a one NCCL rank in this
+     process (init_distributed, solve_distributed), three float32 LM
+     iterations on ladybug138_real (dense) and final961_pairs (pairs), the
+     same bits as lm_run, ms per iteration, launches, collective bytes and
+     ms per try; 7b two spawned ranks on the one card over gloo (NCCL
+     takes one rank a device), the default solve of the 138-camera problem
+     with s_reduce "psum" and "scatter", against phase 3b's solve, every
+     dense kernel launched on each rank; (see one_rank_phase and
+     two_rank_phase);
   5. a JSON line of the kernels and the paths, then, last, the device JSON
      line.
 It imports nothing of JAX.
@@ -1480,7 +1489,6 @@ def main(argv) -> int:
         profile(lb.with_tile_point_order()[0], cfg, dev, "dense",
                 name="ladybug138_real")
         profile(big, cfg, dev, "pairs")
-    del big
     torch.cuda.empty_cache()
 
     # ---- phase 3g: TR from the start through the GMW bootstrap
@@ -1600,6 +1608,26 @@ def main(argv) -> int:
     # ---- phase 6: the CLI on the card
     cli = cli_phase(prob, res64)
 
+    # ---- phase 7: the sharded solve (psba_tpu_torch.parallel)
+    t7 = time.perf_counter()
+    par = {"one_nccl_rank": one_rank_phase(lb, big, dev, reset, read),
+           "two_gloo_ranks": two_rank_phase(prob, res, cfg, dev,
+                                            dense_path)}
+    par["seconds"] = time.perf_counter() - t7
+    del big
+    seen = {k: 0 for k in kern}
+    for v in par["one_nccl_rank"].values():
+        for k in kern:
+            seen[k] += v["launches"][k]
+    for k in kern:
+        for x in par["two_gloo_ranks"]["psum"]["launches_per_rank"]:
+            seen[k] += x[k]
+    par["launches"] = seen
+    print(f"[7] launches over phase 7 {seen}; {par['seconds']:.1f} s",
+          flush=True)
+    for k in kern:
+        need(seen[k] > 0, f"phase 7: kernel {k} never launched")
+
     # ---- phase 5: output
     src = {
         "linearize_dense": ("psba_tpu_torch/csrc/linearize_dense.cu",
@@ -1625,7 +1653,8 @@ def main(argv) -> int:
              launches_dense_default=launches[k],
              launches_dense_lm_path=launches_lm[k],
              launches_pairs_default=pd["launches"][k],
-             launches_pairs_lm_path=pl["launches"][k], **rows[k])
+             launches_pairs_lm_path=pl["launches"][k],
+             launches_sharded=par["launches"][k], **rows[k])
         for k in src
     ]
     kernels[src_names.index("linearize_stream")]["launches_point_pass"] = {
@@ -1677,6 +1706,7 @@ def main(argv) -> int:
                                    "final_error": r3x.final_error},
             "cli": cli,
         },
+        "parallel": par,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1815,6 +1845,218 @@ def cli_phase(prob, res64) -> dict:
         print(f"[6] CLI float64 final_error vs phase 3d: rel {rel:.3e} "
               "(tolerance 1e-4)", flush=True)
         need(rel <= 1e-4, "CLI float64 run and phase 3d disagree")
+    return out
+
+
+def collective_line(res, tries: int) -> dict:
+    """A sharded solve's collectives (SolveResult.collectives) per tag and
+    per try: calls, bytes, ms (ms only from a timed run)."""
+    tags = {k: dict(calls=v["calls"], bytes=v["bytes"],
+                    ms=1e3 * v["seconds"])
+            for k, v in res.collectives.items()}
+    total_b = sum(v["bytes"] for v in tags.values())
+    total_ms = sum(v["ms"] for v in tags.values())
+    return dict(tries=tries, by_tag=tags, bytes_per_try=total_b / tries,
+                ms_per_try=total_ms / tries)
+
+
+def one_rank_phase(lb, big, dev, reset, read) -> dict:
+    """Phase 7a: one NCCL rank on cuda:0 (init_distributed with a file
+    store in a temporary directory), psba_tpu_torch.parallel.distributed.
+    solve_distributed on ladybug138_real (dense) and final961_pairs
+    (pairs), three float32 LM iterations each, against OptState.init +
+    lm_run on ProblemArrays.from_problem in the caller's point order, in
+    turns (lm_run, sharded, sharded with each collective timed between two
+    device synchronizations, lm_run): the same bits (cameras, points,
+    final L2) in all four, ms per iteration of each, the launches of the
+    untimed sharded run (counters reset just before it, read just after),
+    and the timed run's collectives: calls, bytes and ms per try."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from psba_tpu_torch.parallel.distributed import (
+        init_distributed,
+        solve_distributed,
+    )
+    from psba_tpu_torch.parallel.shard import resolve_damping_host
+    from psba_tpu_torch.solvers import OptState, ProblemArrays, SolverConfig
+    from psba_tpu_torch.solvers.lm import lm_run
+
+    f32 = torch.float32
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/store", 1, 0, device=dev,
+                         backend="nccl" if dev.type == "cuda" else "gloo")
+        print(f"[7a] process group: backend {dist.get_backend()}, world "
+              f"size {dist.get_world_size()}", flush=True)
+        try:
+            for label, p, schur in (("ladybug138_real", lb, "dense"),
+                                    ("final961_pairs", big, "pairs")):
+                base = SolverConfig.for_dtype(f32, max_iters=3,
+                                              lm_switch_count=10_000)
+                cfg = resolve_damping_host(base, p, f32, dev)
+                pa = ProblemArrays.from_problem(p, dtype=f32, device=dev,
+                                                schur=schur)
+                t = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
+
+                def single():
+                    st = OptState.init(pa, t(p.cams), t(p.pts))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st = lm_run(pa, st, cfg)
+                    l2 = float(st.ex_l2)
+                    ms = 1e3 * (time.perf_counter() - t0) / st.itno
+                    return (st.cams.cpu().numpy(), st.pts.cpu().numpy(),
+                            l2), ms
+
+                ref, ms_one = single()
+                reset()
+                r = solve_distributed(p, cfg, dtype=f32, schur=schur,
+                                      device=dev)
+                launches = read()
+                rt = solve_distributed(p, cfg, dtype=f32, schur=schur,
+                                       device=dev, time_collectives=True)
+                ref2, ms_two = single()
+                del pa
+                got = [(x.cams, x.pts, x.final_l2) for x in (r, rt)] + [ref2]
+                same = all(np.array_equal(g[0], ref[0])
+                           and np.array_equal(g[1], ref[1]) and g[2] == ref[2]
+                           for g in got)
+                tries = rt.collectives["lm_try"]["calls"]
+                coll = collective_line(rt, tries)
+                ms = [ms_one,
+                      1e3 * r.phase_seconds["lm"] / r.iterations,
+                      1e3 * rt.phase_seconds["lm"] / rt.iterations, ms_two]
+                out[label] = dict(
+                    schur=schur, iterations=r.iterations, tries=tries,
+                    ms_per_iteration_in_turns=dict(zip(
+                        ("lm_run", "sharded", "sharded_timed", "lm_run_2"),
+                        ms)),
+                    same_bits=same, launches=launches, collectives=coll,
+                    final_l2=r.final_l2)
+                print(f"[7a] {label} ({schur}), one NCCL rank, LM x3: "
+                      f"{r}\n[7a]   same bits as lm_run in all four runs: "
+                      f"{same}; final L2 {r.final_l2!r} vs {ref[2]!r}\n"
+                      f"[7a]   ms per LM iteration in turns (lm_run, "
+                      f"sharded, sharded timed, lm_run): "
+                      f"{[round(x, 3) for x in ms]}\n[7a]   launches "
+                      f"{launches}\n[7a]   collectives over {tries} tries "
+                      f"(timed run): {coll['bytes_per_try']:.0f} bytes and "
+                      f"{coll['ms_per_try']:.4f} ms per try; by tag "
+                      f"{coll['by_tag']}", flush=True)
+                need(same, f"7a {label}: one NCCL rank does not give "
+                     "lm_run's bits")
+                need(r.iterations == 3, f"7a {label}: {r.iterations} "
+                     "iterations")
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def warm_solve_rank(device, s_reduces, **kw) -> list:
+    """A rank of phase 7b: a two-iteration warm-up solve (cuBLAS, the
+    kernel libraries, gloo's connections), then parallel.distributed.
+    solve_rank once for each S collective in `s_reduces`."""
+    from psba_tpu_torch.parallel.distributed import (
+        solve_distributed,
+        solve_rank,
+    )
+
+    from psba_tpu_torch.ops import cholesky, linearize_dense
+    from psba_tpu_torch.ops import linearize_stream, residual_dense
+
+    cfg = kw.pop("cfg")
+    solve_distributed(device=device, cfg=cfg._replace(max_iters=2), **kw)
+    out = []
+    for s in s_reduces:
+        # every count to 0 just before the solve (solve_rank reads them
+        # just after)
+        for fn in (linearize_dense.linearize_dense, cholesky.spd_solve,
+                   residual_dense.gain_dense, residual_dense.jgram_dense,
+                   linearize_stream.linearize_stream,
+                   linearize_stream.residual_l2):
+            fn.launches = 0
+        out.append(solve_rank(device, cfg=cfg._replace(s_reduce=s), **kw))
+    return out
+
+
+def two_rank_phase(prob, res, cfg, dev, dense_path) -> dict:
+    """Phase 7b: two spawned ranks on cuda:0 over gloo (NCCL takes one rank
+    a device), the default float32 hybrid solve of the 138-camera problem
+    split in two, with s_reduce "psum" and then "scatter" (reduce_scatter
+    + all_gather) in the same ranks, each collective timed (the device
+    synchronized around it): the same first LM phase and the
+    switch to TR as phase 3b's single-device solve `res`, final L2 within
+    1e-3 of it, every dense-path kernel launched on each rank, and the
+    gathered points and cameras reprojecting to the final L2 (float64,
+    1e-3)."""
+    import numpy as np
+    import torch
+
+    from psba_tpu_torch.core.residual import error_l2, residuals
+    from psba_tpu_torch.parallel.distributed import gather_points, run_ranks
+
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    s_reduces = ("psum", "scatter")
+    t0 = time.perf_counter()
+    per_rank = run_ranks([dev.type + ":0"] * 2, "gloo", warm_solve_rank,
+                         timeout=600, s_reduces=s_reduces, prob=prob,
+                         cfg=cfg._replace(record_history=False), dtype=f32,
+                         schur="dense", time_collectives=True)
+    secs = time.perf_counter() - t0
+    print(f"[7b] two ranks on {dev.type}:0 over gloo: {secs:.1f} s with the "
+          "spawn, the warm-up and both solves", flush=True)
+    for k, s_reduce in enumerate(s_reduces):
+        ranks = [x[k] for x in per_rank]
+        r = gather_points([x["result"] for x in ranks])
+        per = per_phase_iterations(r)
+        ms = {ph: 1e3 * r.phase_seconds[ph] / per[ph] for ph in per}
+        tries = (r.collectives["lm_try"]["calls"]
+                 + r.collectives.get("tr_try", {"calls": 0})["calls"])
+        coll = collective_line(r, tries)
+        f = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=dev)
+        i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                      device=dev)
+        l2_at = float(error_l2(residuals(
+            f(prob.K), f(prob.q0), f(r.cams), f(r.pts), f(prob.obs),
+            i(prob.cam_idx), i(prob.pt_idx))))
+        rel = abs(r.final_l2 - res.final_l2) / res.final_l2
+        rel_at = abs(l2_at - r.final_l2) / r.final_l2
+        out[s_reduce] = dict(
+            backend="gloo", ranks=2, device=str(dev.type) + ":0",
+            phases=r.phases, iterations=per, ms_per_iteration=ms,
+            seconds_both_with_spawn=secs, final_l2=r.final_l2,
+            final_error=r.final_error, rel_to_single=rel,
+            rel_reprojected=rel_at, collectives=coll,
+            launches_per_rank=[x["launches"] for x in ranks])
+        print(f"[7b] two ranks on {dev.type}:0 over gloo, s_reduce="
+              f"{s_reduce}: {r}\n[7b]   phases {r.phases} (single device "
+              f"{res.phases}); ms per iteration {ms}\n[7b]   final L2 {r.final_l2!r} vs single "
+              f"{res.final_l2!r}: rel {rel:.3e} (tolerance 1e-3); "
+              f"reprojected in float64 rel {rel_at:.3e} (tolerance 1e-3)"
+              f"\n[7b]   launches per rank "
+              f"{[x['launches'] for x in ranks]}\n[7b]   collectives "
+              f"(timed) over {tries} tries: {coll['bytes_per_try']:.0f} "
+              f"bytes and {coll['ms_per_try']:.3f} ms per try; by tag "
+              f"{coll['by_tag']}", flush=True)
+        need(r.phases[0] == res.phases[0] and r.phases[1][0] == "tr",
+             f"7b {s_reduce}: first LM phase or the switch to TR differs "
+             "from the single-device solve")
+        need(rel <= 1e-3 and rel_at <= 1e-3,
+             f"7b {s_reduce}: final L2 off the single-device solve")
+        need(r.flag_name in ("DP_NO_CHANGE", "ERR_SMALL_ENOUGH", "CONTINUE"),
+             f"7b {s_reduce}: abnormal stop {r.flag_name}")
+        for rank, x in enumerate(ranks):
+            for k in dense_path:
+                need(x["launches"][k] > 0,
+                     f"7b {s_reduce}: rank {rank} launched no {k}")
+        need(r.collectives["S"]["calls"] > 0, f"7b {s_reduce}: no S "
+             "collective")
     return out
 
 

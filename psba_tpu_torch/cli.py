@@ -3,7 +3,9 @@
     python -m psba_tpu_torch.cli --cams CAMS.txt --pts PTS.txt [options]
 
 The flags of psba_tpu.cli plus --device (default cuda; --device cpu runs
-the plain PyTorch versions). The default precision is float64, which takes
+the plain PyTorch versions). --mesh N splits the points over N processes
+(parallel.shard.solve_sharded): N cards over NCCL, or with --device cpu N
+CPU processes over gloo. The default precision is float64, which takes
 the XLA form (torch ops: cuBLAS DGEMM and cuSOLVER on the card); --f32 runs
 the float32 kernel path, and --polish N appends N float64 LM iterations.
 Prints the reference program's report block (wall clock, initial / final
@@ -61,8 +63,9 @@ def build_parser():
                         "'highest' runs here ('high': ROADMAP Queue 1 "
                         "item 18)")
     p.add_argument("--mesh", type=int, default=1,
-                   help="shard over N devices (only 1 runs here: ROADMAP "
-                        "Queue 1 item 16)")
+                   help="shard the points over N processes, one device "
+                        "each (N cards over NCCL; with --device cpu, N CPU "
+                        "processes over gloo)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the solve (default cuda; cpu runs "
                         "the plain PyTorch versions)")
@@ -80,9 +83,10 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh > 1:
-        sys.exit("error: --mesh > 1: multi-GPU solves are not ported yet "
-                 "(ROADMAP Queue 1 item 16)")
+    if args.mesh > 1 and (args.checkpoint or args.polish):
+        sys.exit("error: --mesh > 1 takes neither --checkpoint nor --polish "
+                 "(the sharded solve has no checkpoints and no float64 "
+                 "polish)")
     if args.s_precision != "highest":
         sys.exit("error: --s-precision high: its Hopper mapping is not "
                  "decided yet (ROADMAP Queue 1 item 18)")
@@ -99,6 +103,7 @@ def main(argv=None):
 
     from psba_tpu_torch.io import bal_to_problem, load_problem, native
     from psba_tpu_torch.io.synthetic import synthesize_points_for_cams
+    from psba_tpu_torch.parallel.shard import solve_sharded
     from psba_tpu_torch.solvers import SolverConfig
     from psba_tpu_torch.solvers.hybrid import solve
 
@@ -132,13 +137,14 @@ def main(argv=None):
         damping=args.damping,
         record_history=args.verbose,
     )
-    res = solve(
-        prob, cfg, dtype=torch.float32 if args.f32 else None,
-        device=args.device,
-        start=("tr" if args.solver == "tr" else "lm"),
-        checkpoint_dir=args.checkpoint,
-        polish_iters=args.polish,
-    )
+    dtype = torch.float32 if args.f32 else None
+    start = "tr" if args.solver == "tr" else "lm"
+    if args.mesh > 1:
+        res = solve_sharded(prob, cfg, n_devices=args.mesh, dtype=dtype,
+                            start=start, device=args.device)
+    else:
+        res = solve(prob, cfg, dtype=dtype, device=args.device, start=start,
+                    checkpoint_dir=args.checkpoint, polish_iters=args.polish)
     if args.verbose:
         print(res.format_history(), file=sys.stderr)
         if res.phase_report:

@@ -24,12 +24,20 @@ from psba_tpu_torch.ops.reduce import indexed_sum
 
 
 def assemble_blocks(A: torch.Tensor, B: torch.Tensor, ex: torch.Tensor,
-                    cam_idx, pt_idx, n_cams: int, n_pts: int, coeff=1.0):
+                    cam_idx, pt_idx, n_cams: int, n_pts: int, coeff=1.0,
+                    valid=None):
     """Return (U [C,6,6], V [P,3,3], W [O,6,3], ga [C,6], gb [P,3]).
 
     One Gram G_o = [A|B|ex]^T [A|B|ex] [O, 10, 10] per observation holds
     every block; the camera pack U | ga [O, 42] and the point pack V | gb
-    [O, 12] are each one fixed-order bucket sum (ops.reduce.indexed_sum)."""
+    [O, 12] are each one fixed-order bucket sum (ops.reduce.indexed_sum).
+    `valid` [O] bool zeroes the padded observations' A, B and ex first
+    (the sharded path)."""
+    if valid is not None:
+        zero = torch.zeros((), dtype=A.dtype, device=A.device)
+        A = torch.where(valid[:, None, None], A, zero)
+        B = torch.where(valid[:, None, None], B, zero)
+        ex = torch.where(valid[:, None], ex, zero)
     G = torch.cat([A, B, ex[:, :, None]], dim=-1)               # [O, 2, 10]
     Gram = (G[:, 0, :, None] * G[:, 0, None, :]
             + G[:, 1, :, None] * G[:, 1, None, :])              # [O, 10, 10]

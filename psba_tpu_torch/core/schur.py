@@ -188,10 +188,12 @@ def max_diag_planar(U: torch.Tensor, Vp: torch.Tensor,
     return torch.maximum(du, dv)
 
 
-def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor):
+def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor, psum=None):
     """S = blockdiag(U) - sum_j ZY_j @ ZW_j^T with ZY_j = sum_m ZW_m *
-    Vinv[m, j]. U [C, 6, 6] must already be damped. Returns (S [6C, 6C],
-    ZY3), ZY3 reused by reduced_rhs_dense3."""
+    Vinv[m, j]. U [C, 6, 6] must already be damped (and mesh-global);
+    `psum` (a parallel.ctx.MeshCtx reduction) sums the shard-local
+    off-diagonal part. Returns (S [6C, 6C], ZY3), ZY3 reused by
+    reduced_rhs_dense3."""
     _pin_fp32_matmul()
     C = U.shape[0]
     ZY3 = tuple(
@@ -203,16 +205,21 @@ def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor):
     off = torch.matmul(ZY3[0], ZW3[0].T)
     off += torch.matmul(ZY3[1], ZW3[1].T)
     off += torch.matmul(ZY3[2], ZW3[2].T)
+    if psum is not None:
+        off = psum(off)
     S = (-off).reshape(C, 6, C, 6)
     # the diagonal view over the two camera axes is [6, 6, C]
     S.diagonal(dim1=0, dim2=2).add_(U.permute(1, 2, 0))
     return S.reshape(6 * C, 6 * C), ZY3
 
 
-def reduced_rhs_dense3(ga: torch.Tensor, gbp: torch.Tensor, ZY3):
-    """ea = ga - sum_j ZY_j @ gbp[j]; gbp is [3, Pp]. Returns [C, 6]."""
+def reduced_rhs_dense3(ga: torch.Tensor, gbp: torch.Tensor, ZY3, psum=None):
+    """ea = ga - sum_j ZY_j @ gbp[j]; gbp is [3, Pp]. Returns [C, 6]. `ga`
+    must be mesh-global; `psum` sums the shard-local term."""
     _pin_fp32_matmul()
     term = sum(torch.matmul(ZY3[j], gbp[j]) for j in range(3))
+    if psum is not None:
+        term = psum(term)
     return ga - term.reshape(-1, 6)
 
 
@@ -252,11 +259,13 @@ def stack_blocks(W: torch.Tensor, blk_idx: torch.Tensor) -> torch.Tensor:
     return G.reshape(C, P, 6, 3).permute(0, 2, 3, 1).reshape(6 * C, 3 * P)
 
 
-def schur_S_dense(U: torch.Tensor, ZW: torch.Tensor, Vp: torch.Tensor):
+def schur_S_dense(U: torch.Tensor, ZW: torch.Tensor, Vp: torch.Tensor,
+                  psum=None):
     """S = blockdiag(U) - ZY @ ZW^T with ZY[:, jP+p] = sum_k ZW[:, kP+p]
-    Vp[k, j, p]. U [C, 6, 6] must already be damped; Vp is the planar
-    inverse [3, 3, P] (inv3x3_planar). Returns (S [6C, 6C], ZY [6C, 3P]),
-    ZY reused by reduced_rhs_dense."""
+    Vp[k, j, p]. U [C, 6, 6] must already be damped (and mesh-global); Vp
+    is the planar inverse [3, 3, P] (inv3x3_planar); `psum` sums the
+    shard-local ZY @ ZW^T. Returns (S [6C, 6C], ZY [6C, 3P]), ZY reused by
+    reduced_rhs_dense."""
     R = ZW.shape[0]
     C, P = R // 6, ZW.shape[1] // 3
     Zk = ZW.reshape(R, 3, P)
@@ -267,16 +276,23 @@ def schur_S_dense(U: torch.Tensor, ZW: torch.Tensor, Vp: torch.Tensor):
     ], dim=1)
     # no _pin_fp32_matmul here: TF32 concerns float32 products only, and
     # in float64 this product is DGEMM
-    S = (-torch.matmul(ZY, ZW.T)).reshape(C, 6, C, 6)
+    off = torch.matmul(ZY, ZW.T)
+    if psum is not None:
+        off = psum(off)
+    S = (-off).reshape(C, 6, C, 6)
     S.diagonal(dim1=0, dim2=2).add_(U.permute(1, 2, 0))
     return S.reshape(6 * C, 6 * C), ZY
 
 
 def reduced_rhs_dense(ga: torch.Tensor, gbp: torch.Tensor,
-                      ZY: torch.Tensor) -> torch.Tensor:
+                      ZY: torch.Tensor, psum=None) -> torch.Tensor:
     """ea = ga - ZY @ gbp; gbp is the planar [3P] point vector
-    (planar_gb). Returns [C, 6]."""
-    return ga - torch.matmul(ZY, gbp).reshape(-1, 6)
+    (planar_gb). Returns [C, 6]. `ga` must be mesh-global; `psum` sums the
+    shard-local term."""
+    term = torch.matmul(ZY, gbp)
+    if psum is not None:
+        term = psum(term)
+    return ga - term.reshape(-1, 6)
 
 
 def planar_gb(gb: torch.Tensor) -> torch.Tensor:
@@ -315,25 +331,32 @@ def y_blocks(W: torch.Tensor, Vinv: torch.Tensor,
 
 
 def schur_S(U: torch.Tensor, Y: torch.Tensor, W: torch.Tensor, pair_o1,
-            pair_o2, pair_bucket, n_cams: int) -> torch.Tensor:
-    """S [6C, 6C] from the pair list; U [C, 6, 6] must already be damped.
-    Pair entries with bucket C*C (padding) add nothing."""
+            pair_o2, pair_bucket, n_cams: int, psum=None) -> torch.Tensor:
+    """S [6C, 6C] from the pair list; U [C, 6, 6] must already be damped
+    (and mesh-global); `psum` sums the shard-local bucket sums. Pair
+    entries with bucket C*C (padding) add nothing."""
     _pin_fp32_matmul()
     C = n_cams
     contrib = torch.matmul(Y[pair_o1], W[pair_o2].transpose(1, 2))  # [N,6,6]
-    S = -indexed_sum(contrib.reshape(-1, 36), pair_bucket,
-                     C * C).reshape(C, C, 6, 6)
+    off = indexed_sum(contrib.reshape(-1, 36), pair_bucket, C * C)
+    if psum is not None:
+        off = psum(off)
+    S = -off.reshape(C, C, 6, 6)
     ar = torch.arange(C, device=U.device)
     S[ar, ar] += U
     return S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
 
 
 def reduced_rhs(ga: torch.Tensor, gb: torch.Tensor, Y: torch.Tensor,
-                cam_idx, pt_idx, n_cams: int) -> torch.Tensor:
-    """ea_j = ga_j - sum_{o: cam(o)=j} Y_o gb_{i(o)}  [C, 6]."""
+                cam_idx, pt_idx, n_cams: int, psum=None) -> torch.Tensor:
+    """ea_j = ga_j - sum_{o: cam(o)=j} Y_o gb_{i(o)}  [C, 6]. `ga` must be
+    mesh-global; `psum` sums the shard-local term."""
     _pin_fp32_matmul()
     contrib = torch.matmul(Y, gb[pt_idx][..., None])[..., 0]      # [O, 6]
-    return ga - indexed_sum(contrib, cam_idx, n_cams)
+    term = indexed_sum(contrib, cam_idx, n_cams)
+    if psum is not None:
+        term = psum(term)
+    return ga - term
 
 
 def back_substitute(gb: torch.Tensor, W: torch.Tensor, Vinv: torch.Tensor,

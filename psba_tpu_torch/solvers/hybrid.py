@@ -68,6 +68,9 @@ class SolveResult:
     resolved_damping: str = ""  # "additive" | "marquardt" after "auto"
     phase_seconds: dict = dataclasses.field(default_factory=dict)  # wall
     # seconds per phase name, summed over the phase's runs
+    collectives: dict = dataclasses.field(default_factory=dict)  # a
+    # sharded solve's collectives by tag: calls, bytes, seconds (timed only
+    # on request; parallel.ctx.MeshCtx.summary)
 
     def format_history(self) -> str:
         """Reference-style per-iteration progress lines (LM and TR rows)."""

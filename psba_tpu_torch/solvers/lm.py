@@ -27,7 +27,18 @@ The loops are eager Python. Tensors stay on the device; once per try the
 few scalars that decide acceptance are read to the host in one transfer,
 and the control arithmetic (mu, nu, rho, the stop tests) runs on numpy
 scalars of the working dtype, so it rounds as the reference's on-device
-scalars do. Same constants and update rules as the reference:
+scalars do.
+
+On a mesh (`ctx`, a parallel.ctx.MeshCtx over a process group) `pa` and
+the points hold one shard (padded observations masked by pa.valid) and the
+cameras are replicated. The reductions sit where the reference's are: U and
+ga (one all_reduce), S (cfg.s_reduce) and ea, the max diagonal of the first
+damping, and once per try the shard-local scalars of the host read (|dpb|^2,
+the point part of the denominator, the gain, |new pts|^2 and the count of
+shards with a singular V block) in one all_reduce before the read. Every
+rank then reads the same scalars and takes the same branch. With NO_MESH
+each reduction is the identity. Same constants and update rules as the
+reference:
   - first damping mu = tau * max(diag U, diag V) (additive) or tau
     (Marquardt, which damps mu * diag)
   - gain ratio rho = gain / dp^T (mu D dp + g)
@@ -79,6 +90,7 @@ from psba_tpu_torch.core.schur import (
 from psba_tpu_torch.ops.linearize_dense import linearize_dense
 from psba_tpu_torch.ops.linearize_stream import linearize_stream, residual_l2
 from psba_tpu_torch.ops.residual_dense import gain_dense
+from psba_tpu_torch.parallel.ctx import NO_MESH, MeshCtx
 from psba_tpu_torch.solvers.types import (
     OptState,
     ProblemArrays,
@@ -97,10 +109,11 @@ def lm_fresh_aux(dtype, device="cpu") -> torch.Tensor:
 
 
 def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
-           iter_cap: int | None = None) -> OptState:
+           iter_cap: int | None = None, ctx: MeshCtx = NO_MESH) -> OptState:
     """Run LM until a flag other than CONTINUE or the shared iteration
     budget (or `iter_cap`, a global-iteration bound below cfg.max_iters
-    for chunked checkpointing). `cfg.damping` must be resolved."""
+    for chunked checkpointing). `cfg.damping` must be resolved. `ctx`: the
+    mesh of a sharded solve (module docstring)."""
     if cfg.damping == "auto":
         raise ValueError(
             'cfg.damping="auto" must be resolved before lm_run: call '
@@ -147,21 +160,27 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     dense3 = kernels and not pairs
     clamp = cfg.clamp_quat
     tables = (pa.obs_du, pa.obs_dv, pa.valid_d)
+    valid = pa.valid
+    # the collective of the S assembly (cfg.s_reduce)
+    s_psum = ((lambda x: ctx.psum_rs(x, tag="S"))
+              if cfg.s_reduce == "scatter" else
+              (lambda x: ctx.psum(x, tag="S")))
+    ea_psum = lambda x: ctx.psum(x, tag="ea")
 
     while itno < cap and flag == CC.ITER_CONTINUE:
         if not kernels:
             A, B = jacobians(pa.K, pa.q0, cams, pts, pa.cam_idx, pa.pt_idx,
                              clamp=clamp)
             U, V, W, ga, gb = assemble_blocks(A, B, ex, pa.cam_idx,
-                                              pa.pt_idx, C, P)
+                                              pa.pt_idx, C, P, valid=valid)
             if not pairs:
                 # once per iteration: every try reuses the planar ZW
                 ZW = stack_blocks(W, pa.blk_idx)
                 gbp = planar_gb(gb)
         elif pairs:
             _ex, _l2, U, V, W, ga, gb, _, _ = linearize_stream(
-                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
-                C, P, clamp=clamp, tables=pa.stream,
+                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx,
+                pa.valid_f, C, P, clamp=clamp, tables=pa.stream,
             )
         else:
             ZW0, ZW1, ZW2, Vp, gbp, _Pp, U, ga = linearize_dense(
@@ -170,12 +189,13 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             )
             ZW3 = (ZW0, ZW1, ZW2)
             gb = gbp[:, :P].T
+        U, ga = ctx.psum(U, ga, tag="U_ga")
         if first:
             if marq:
                 mu = ft(cfg.tau)
             else:
                 md = max_diag_planar(U, Vp, P) if dense3 else max_diag(U, V)
-                mu = ft(cfg.tau) * ft(md.item())
+                mu = ft(cfg.tau) * ft(ctx.pmax(md, tag="max_diag").item())
             nu, p_l2 = ft(2.0), ft(1e3)
         if marq:
             dU = torch.diagonal(U, dim1=-2, dim2=-1)
@@ -195,12 +215,13 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 Vinv, vok = inv3x3(V_d)
                 Y = y_blocks(W, Vinv, pa.pt_idx)
                 S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
-                            pa.pair_bucket, C)
-                ea = reduced_rhs(ga, gb, Y, pa.cam_idx, pa.pt_idx, C)
+                            pa.pair_bucket, C, psum=s_psum)
+                ea = reduced_rhs(ga, gb, Y, pa.cam_idx, pa.pt_idx, C,
+                                 psum=ea_psum)
             elif not kernels:
                 Vinv, vok = inv3x3_planar(V_d)
-                S, ZY = schur_S_dense(U_d, ZW, Vinv)
-                ea = reduced_rhs_dense(ga, gbp, ZY)
+                S, ZY = schur_S_dense(U_d, ZW, Vinv, psum=s_psum)
+                ea = reduced_rhs_dense(ga, gbp, ZY, psum=ea_psum)
             else:
                 if marq:
                     U_d = U + (mu_t * Dc)[..., None] * eye6
@@ -209,8 +230,8 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                     U_d = U + mu_t * eye6
                     Vp_d = damp_v_planar(Vp, mu_t)
                 Vinv, vok = inv3x3_planar3(Vp_d)
-                S, ZY3 = schur_S_dense3(U_d, ZW3, Vinv)
-                ea = reduced_rhs_dense3(ga, gbp, ZY3)
+                S, ZY3 = schur_S_dense3(U_d, ZW3, Vinv, psum=s_psum)
+                ea = reduced_rhs_dense3(ga, gbp, ZY3, psum=ea_psum)
             dpa_flat, ok = spd_solve(S, ea.reshape(-1))
             dpa = dpa_flat.reshape(C, 6)
             if pairs:
@@ -225,11 +246,12 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             if not kernels:
                 new_ex = residuals(pa.K, pa.q0, new_cams, new_pts, pa.obs,
                                    pa.cam_idx, pa.pt_idx, clamp=clamp)
-                gain_t = error_l2_diff(ex, new_ex)
+                gain_t = error_l2_diff(ex, new_ex, valid)
             elif pairs:
                 new_ex, _new_l2, gain_t = residual_l2(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
-                    pa.pt_idx32, None, clamp=clamp, kq=pa.kq, ex_old=ex,
+                    pa.pt_idx32, pa.valid_f, clamp=clamp, kq=pa.kq,
+                    ex_old=ex,
                 )
             else:
                 gain_t, _new_l2 = gain_dense(
@@ -242,14 +264,19 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             else:
                 den_c = torch.sum(dpa * (mu_t * dpa + ga))
                 den_p = torch.sum(dpb * (mu_t * dpb + gb))
-            # the one host read of the try
-            vals = torch.stack([
-                torch.sum(dpa * dpa), torch.sum(dpb * dpb), den_c, den_p,
-                gain_t, torch.sum(new_cams * new_cams),
-                torch.sum(new_pts * new_pts), (ok & vok).to(dtype),
-            ]).cpu().numpy().astype(ft)
-            dpa2, dpb2, den_c, den_p, gain, nc2, np2, okf = vals
-            ok_all = bool(okf > 0.5)
+            # the shard-local scalars, summed over the mesh in one
+            # collective (the last counts the shards with a singular V
+            # block), then the one host read of the try
+            local = ctx.psum(torch.stack([
+                torch.sum(dpb * dpb), den_p, gain_t,
+                torch.sum(new_pts * new_pts), (~vok).to(dtype),
+            ]), tag="lm_try")
+            vals = torch.cat([torch.stack([
+                torch.sum(dpa * dpa), den_c, torch.sum(new_cams * new_cams),
+                ok.to(dtype),
+            ]), local]).cpu().numpy().astype(ft)
+            dpa2, den_c, nc2, okf, dpb2, den_p, gain, np2, n_bad = vals
+            ok_all = bool(okf > 0.5) and bool(n_bad < 0.5)
             dp_l2 = dpa2 + dpb2
             denom = den_c + den_p
 

@@ -39,7 +39,7 @@ Then, in both:
     failures double lambda, escalate by nu once a lambda had succeeded, and
     nu > 4 hands back to LM (at most 64 tries)
   - the step minimizes the model over span{P_U, P_B} or falls back to the
-    scaled P_U / P_B / dogleg (`_subspace_step`)
+    scaled P_U / P_B / dogleg (`_subspace_prep`, `_subspace_pick`)
   - rho = gain / (ex_l2 - L(p)) with L(p) = ex_l2 + g^T p + p^T B p / 2;
     every p^T B p is an explicit |J p|^2 (jgram_dense or jmultiply above;
     the expansion over the 2x2 Gram of {P_U, P_B} cancels in float32)
@@ -50,7 +50,18 @@ Then, in both:
 
 The loops are eager Python, as in solvers.lm: vectors stay on the device,
 the scalars that decide control flow are read to the host once per try and
-handled as numpy scalars of the working dtype.
+handled as numpy scalars of the working dtype. Everything in the dogleg
+step that does not depend on the radius (`_subspace_prep`) is formed once
+per iteration; each model try only picks the step for its radius
+(`_subspace_pick`).
+
+On a mesh (`ctx`, a parallel.ctx.MeshCtx; see solvers.lm) the point parts
+of every dot product are summed over the shards where the reference sums
+them: U and ga once per iteration (one all_reduce), the max of g, the
+Cauchy curvature with |g_p|^2, the 2x2 curvature Gram, the dogleg dots (two
+all_reduces: those of P_U, P_B, g, then |p|^2), S (cfg.s_reduce), ea and the
+V-block check per lambda try, and per model try gain, L2, g^T p and p^T B p
+in one all_reduce before the host read.
 """
 
 from __future__ import annotations
@@ -85,6 +96,7 @@ from psba_tpu_torch.core.schur import (
 from psba_tpu_torch.ops.linearize_dense import linearize_dense
 from psba_tpu_torch.ops.linearize_stream import linearize_stream, residual_l2
 from psba_tpu_torch.ops.residual_dense import gain_dense, jgram_dense
+from psba_tpu_torch.parallel.ctx import NO_MESH, MeshCtx
 from psba_tpu_torch.solvers.types import (
     OptState,
     ProblemArrays,
@@ -104,36 +116,51 @@ def tr_fresh_aux(cfg: SolverConfig, dtype, device="cpu") -> torch.Tensor:
                         dtype=dtype, device=device)
 
 
-def _dot(a_cams, a_pts, b_cams, b_pts) -> torch.Tensor:
-    return torch.sum(a_cams * b_cams) + torch.sum(a_pts * b_pts)
+def _dots(ctx: MeshCtx, pairs, tag: str):
+    """The dot products a . b of the (cameras, points) vectors in `pairs`
+    ((a_c, a_p, b_c, b_p) each): the camera parts replicated, the point
+    parts summed over the mesh in one collective."""
+    pt = ctx.psum(torch.stack([torch.sum(a_p * b_p)
+                               for _, a_p, _, b_p in pairs]), tag=tag)
+    return [torch.sum(a_c * b_c) + pt[k]
+            for k, (a_c, _, b_c, _) in enumerate(pairs)]
 
 
-def _subspace_step(dot, pu_c, pu_p, pb_c, pb_p, g_c, g_p,
-                   pUtBpU, pUtBpB, pBtBpB, delta):
-    """compute_p_2: minimize the quadratic model over span{P_U, P_B}; when
-    the minimizer leaves the radius, take the scaled P_U, P_B or the classic
-    dogleg point. Returns (p_cams, p_pts, p_norm), p_norm a 0-d tensor.
-    Every branch is formed on the device and selected by torch.where, so
-    NaNs route as in the reference."""
-    delta = torch.as_tensor(delta, dtype=pu_c.dtype, device=pu_c.device)
-    pUg = dot(pu_c, pu_p, g_c, g_p)
-    pBg = dot(pb_c, pb_p, g_c, g_p)
+def _subspace_prep(ctx, pu_c, pu_p, pb_c, pb_p, g_c, g_p,
+                   pUtBpU, pUtBpB, pBtBpB):
+    """compute_p_2's terms that do not depend on the radius: the minimizer
+    p of the quadratic model over span{P_U, P_B}, |p|, |P_U|, |P_B| and the
+    dogleg vectors d = P_B - P_U, e = 2 P_U - P_B with their dots."""
+    d_c, d_p = pb_c - pu_c, pb_p - pu_p
+    e_c, e_p = 2.0 * pu_c - pb_c, 2.0 * pu_p - pb_p
+    pUg, pBg, pu2, pb2, dd, de, ee = _dots(ctx, [
+        (pu_c, pu_p, g_c, g_p), (pb_c, pb_p, g_c, g_p),
+        (pu_c, pu_p, pu_c, pu_p), (pb_c, pb_p, pb_c, pb_p),
+        (d_c, d_p, d_c, d_p), (d_c, d_p, e_c, e_p), (e_c, e_p, e_c, e_p),
+    ], "dogleg")
     den = -pUtBpB * pUtBpB + pBtBpB * pUtBpU
     eta1 = (pBg * pUtBpB - pBtBpB * pUg) / den
     eta2 = (pUg * pUtBpB - pBg * pUtBpU) / den
     p_c = eta1 * pu_c + eta2 * pb_c
     p_p = eta1 * pu_p + eta2 * pb_p
-    p_norm = torch.sqrt(dot(p_c, p_p, p_c, p_p))
+    (pp,) = _dots(ctx, [(p_c, p_p, p_c, p_p)], "dogleg")
+    return dict(p_c=p_c, p_p=p_p, p_norm=torch.sqrt(pp),
+                pu_norm=torch.sqrt(pu2), pb_norm=torch.sqrt(pb2),
+                d_c=d_c, d_p=d_p, a=dd, b=2.0 * de, ee=ee)
 
-    pu_norm = torch.sqrt(dot(pu_c, pu_p, pu_c, pu_p))
-    pb_norm = torch.sqrt(dot(pb_c, pb_p, pb_c, pb_p))
 
+def _subspace_pick(prep, pu_c, pu_p, pb_c, pb_p, delta):
+    """compute_p_2 at radius `delta`: the minimizer p inside the radius,
+    else the scaled P_U, P_B or the classic dogleg point. Returns (p_cams,
+    p_pts, p_norm), p_norm a 0-d tensor. Every branch is formed on the
+    device and selected by torch.where, so NaNs route as in the
+    reference."""
+    delta = torch.as_tensor(delta, dtype=pu_c.dtype, device=pu_c.device)
+    p_c, p_p, p_norm = prep["p_c"], prep["p_p"], prep["p_norm"]
+    pu_norm, pb_norm = prep["pu_norm"], prep["pb_norm"]
+    d_c, d_p, a, b = prep["d_c"], prep["d_p"], prep["a"], prep["b"]
     # dogleg tau root
-    d_c, d_p = pb_c - pu_c, pb_p - pu_p
-    e_c, e_p = 2.0 * pu_c - pb_c, 2.0 * pu_p - pb_p
-    a = dot(d_c, d_p, d_c, d_p)
-    b = 2.0 * dot(d_c, d_p, e_c, e_p)
-    c = dot(e_c, e_p, e_c, e_p) - delta * delta
+    c = prep["ee"] - delta * delta
     b2_4ac = b * b - 4.0 * a * c
     b2_4ac = torch.where(torch.abs(b2_4ac) < 1e-12,
                          torch.zeros_like(b2_4ac), b2_4ac)
@@ -156,10 +183,11 @@ def _subspace_step(dot, pu_c, pu_p, pb_c, pb_p, g_c, g_p,
 
 
 def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
-           iter_cap: int | None = None) -> OptState:
+           iter_cap: int | None = None, ctx: MeshCtx = NO_MESH) -> OptState:
     """Run dogleg TR until a flag other than PASS / CONTINUE or the shared
     iteration budget (or `iter_cap`, a global-iteration bound below
-    cfg.max_iters for chunked checkpointing)."""
+    cfg.max_iters for chunked checkpointing). `ctx`: the mesh of a sharded
+    solve (module docstring)."""
     if cfg.s_precision != "highest":
         raise NotImplementedError(
             f"s_precision={cfg.s_precision!r}: its Hopper mapping is not "
@@ -199,6 +227,11 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     # the kernel path on the dense encoding; every other path has A, B for
     # jmultiply, carries V blocks [P, 3, 3] and refreshes ex on accept
     dense3 = kernels and not pairs
+    valid = pa.valid
+    s_psum = ((lambda x: ctx.psum_rs(x, tag="S"))
+              if cfg.s_reduce == "scatter" else
+              (lambda x: ctx.psum(x, tag="S")))
+    ea_psum = lambda x: ctx.psum(x, tag="ea")
 
     def jgram(c, p, dirs_c, dirs_p):
         # the directions as sequences of [C, 6] / [P, 3] parts, read in place
@@ -209,13 +242,21 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     def jx(A, B, x_c, x_p):
         return jmultiply(A, B, x_c, x_p, pa.cam_idx, pa.pt_idx)
 
+    def msum(e):
+        # a sum over the shard's observations, padding excluded
+        if valid is not None:
+            e = torch.where(valid[:, None], e, torch.zeros_like(e))
+        return torch.sum(e)
+
     while itno < cap and flag in (CC.ITER_PASS, CC.ITER_CONTINUE):
         # every block carries the TR coefficient 2
         if not kernels:
             A, B = jacobians(pa.K, pa.q0, cams, pts, pa.cam_idx, pa.pt_idx,
                              clamp=clamp)
             U, V, W, ga2, gb2 = assemble_blocks(A, B, ex, pa.cam_idx,
-                                                pa.pt_idx, C, P, coeff=2.0)
+                                                pa.pt_idx, C, P, coeff=2.0,
+                                                valid=valid)
+            U, ga2 = ctx.psum(U, ga2, tag="U_ga")
             g_c, g_p = -ga2, -gb2
             if not pairs:
                 # once per iteration: every lambda try reuses them
@@ -223,18 +264,21 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 g_pp = planar_gb(g_p)
         elif pairs:
             _ex, _l2, U1, V1, W1, ga1, gb1, A, B = linearize_stream(
-                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
-                C, P, clamp=clamp, want_jac=True, tables=pa.stream,
+                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx,
+                pa.valid_f, C, P, clamp=clamp, want_jac=True,
+                tables=pa.stream,
             )
+            U1, ga1 = ctx.psum(U1, ga1, tag="U_ga")
             U, V, W = 2.0 * U1, 2.0 * V1, 2.0 * W1
             g_c, g_p = -(2.0 * ga1), -(2.0 * gb1)
         else:
             # U / ga from the observation stream, ZW / V / gb from the grid
             _ex, _l2, U1, _, _, ga1, _, _, _ = linearize_stream(
-                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx, None,
-                C, P, clamp=clamp, want_point=False, want_w=False,
-                tables=pa.stream,
+                pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx, pa.pt_idx,
+                pa.valid_f, C, P, clamp=clamp, want_point=False,
+                want_w=False, tables=pa.stream,
             )
+            U1, ga1 = ctx.psum(U1, ga1, tag="U_ga")
             ZW0, ZW1, ZW2, Vp1, gbp1, _Pp = linearize_dense(
                 pa.K, pa.q0, cams, pts, *grid, clamp=clamp, kq=pa.kq,
                 tile_mask=pa.tile_mask)
@@ -247,16 +291,20 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             g_p = g_pp3[:, :P].T.contiguous()
 
         # Cauchy step on g / max|g|
-        gm = torch.maximum(torch.max(torch.abs(g_c)),
-                           torch.max(torch.abs(g_p)))
+        gm = ctx.pmax(torch.maximum(torch.max(torch.abs(g_c)),
+                                    torch.max(torch.abs(g_p))), tag="g_max")
         gm = torch.where(gm > 0.0, gm, torch.ones_like(gm))
         gh_c, gh_p = g_c / gm, g_p / gm
         if not dense3:
             Jg = jx(A, B, gh_c, gh_p)
-            gtBg_n = 2.0 * torch.sum(Jg * Jg)
+            gtBg_l = 2.0 * msum(Jg * Jg)
         else:
-            gtBg_n = jgram(cams, pts, [gh_c], [gh_p])[0, 0]
-        gtg_n = _dot(gh_c, gh_p, gh_c, gh_p)
+            gtBg_l = jgram(cams, pts, [gh_c], [gh_p])[0, 0]
+        # the shard-local curvature and |g_p|^2 in one collective
+        gtBg_n, ghp2 = ctx.psum(torch.stack([gtBg_l,
+                                             torch.sum(gh_p * gh_p)]),
+                                tag="cauchy")
+        gtg_n = torch.sum(gh_c * gh_c) + ghp2
         scal = -(gtg_n / gtBg_n)
         pu_c, pu_p = scal * g_c, scal * g_p
 
@@ -271,20 +319,22 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 Vinv, vok = inv3x3(V_d)
                 Y = y_blocks(W, Vinv, pa.pt_idx)
                 S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
-                            pa.pair_bucket, C)
-                ea = reduced_rhs(g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C)
+                            pa.pair_bucket, C, psum=s_psum)
+                ea = reduced_rhs(g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C,
+                                 psum=ea_psum)
             elif not kernels:
                 Vinv, vok = inv3x3_planar(V_d)
-                S, ZY = schur_S_dense(U_d, ZW, Vinv)
-                ea = reduced_rhs_dense(g_c, g_pp, ZY)
+                S, ZY = schur_S_dense(U_d, ZW, Vinv, psum=s_psum)
+                ea = reduced_rhs_dense(g_c, g_pp, ZY, psum=ea_psum)
             else:
                 Vinv, vok = inv3x3_planar3(damp_v_planar(Vp, lam_t))
-                S, ZY3 = schur_S_dense3(U + lam_t * eye6, ZW3, Vinv)
-                ea = reduced_rhs_dense3(g_c, g_pp3, ZY3)
+                S, ZY3 = schur_S_dense3(U + lam_t * eye6, ZW3, Vinv,
+                                        psum=s_psum)
+                ea = reduced_rhs_dense3(g_c, g_pp3, ZY3, psum=ea_psum)
             dpa_flat, ok_t = spd_solve(S, ea.reshape(-1))
-            # the one host read of the try; a singular V block escalates
-            # like a Cholesky failure
-            ok = bool(ok_t & vok)
+            # the one host read of the try; a singular V block on any shard
+            # escalates like a Cholesky failure
+            ok = bool(ok_t & ctx.pand(vok, tag="v_ok"))
             if ok:
                 dpa = dpa_flat.reshape(C, 6)
                 if pairs:
@@ -322,42 +372,47 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             # curvature scalars, each an explicit |J x|^2
             if not dense3:
                 Jpu, Jpb = jx(A, B, pu_c, pu_p), jx(A, B, pb_c, pb_p)
-                pUtBpU = 2.0 * torch.sum(Jpu * Jpu)
-                pUtBpB = 2.0 * torch.sum(Jpu * Jpb)
-                pBtBpB = 2.0 * torch.sum(Jpb * Jpb)
+                Gl = 2.0 * torch.stack([msum(Jpu * Jpu), msum(Jpu * Jpb),
+                                        msum(Jpb * Jpb)])
             else:
                 Gm = jgram(cams, pts, [pu_c, pb_c], [pu_p, pb_p])
-                pUtBpU, pUtBpB, pBtBpB = Gm[0, 0], Gm[0, 1], Gm[1, 1]
+                Gl = torch.stack([Gm[0, 0], Gm[0, 1], Gm[1, 1]])
+            pUtBpU, pUtBpB, pBtBpB = ctx.psum(Gl, tag="gram")
+            prep = _subspace_prep(ctx, pu_c, pu_p, pb_c, pb_p, g_c, g_p,
+                                  pUtBpU, pUtBpB, pBtBpB)
 
         # model / radius loop
         while m_flag == CC.ITER_CONTINUE and m_tries < _MAX_MODEL_TRIES:
-            p_c, p_p, p_norm_t = _subspace_step(
-                _dot, pu_c, pu_p, pb_c, pb_p, g_c, g_p, pUtBpU, pUtBpB,
-                pBtBpB, dk,
-            )
+            p_c, p_p, p_norm_t = _subspace_pick(prep, pu_c, pu_p, pb_c,
+                                                pb_p, dk)
             new_cams, new_pts = cams + p_c, pts + p_p
             if not kernels:
                 new_ex = residuals(pa.K, pa.q0, new_cams, new_pts, pa.obs,
                                    pa.cam_idx, pa.pt_idx, clamp=clamp)
-                act_t = error_l2(new_ex)
-                gain_t = error_l2_diff(ex, new_ex)
+                act_t = error_l2(new_ex, valid)
+                gain_t = error_l2_diff(ex, new_ex, valid)
                 Jp = jx(A, B, p_c, p_p)
-                ptBp_t = 2.0 * torch.sum(Jp * Jp)
+                ptBp_t = 2.0 * msum(Jp * Jp)
             elif pairs:
                 new_ex, act_t, gain_t = residual_l2(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx32,
-                    pa.pt_idx32, None, clamp=clamp, kq=pa.kq, ex_old=ex,
+                    pa.pt_idx32, pa.valid_f, clamp=clamp, kq=pa.kq,
+                    ex_old=ex,
                 )
                 Jp = jx(A, B, p_c, p_p)
-                ptBp_t = 2.0 * torch.sum(Jp * Jp)
+                ptBp_t = 2.0 * msum(Jp * Jp)
             else:
                 gain_t, act_t = gain_dense(pa.K, pa.q0, cams, pts, new_cams,
                                            new_pts, *grid, clamp=clamp,
                                            kq=pa.kq, tile_mask=pa.tile_mask)
                 ptBp_t = jgram(cams, pts, [p_c], [p_p])[0, 0]
-            # the one host read of the try
+            # the shard-local scalars summed over the mesh in one
+            # collective, then the one host read of the try
+            gain_t, act_t, gtp_p, ptBp_t = ctx.psum(torch.stack([
+                gain_t, act_t, torch.sum(g_p * p_p), ptBp_t]), tag="tr_try")
             gain, act, gtp, ptBp, p_norm = torch.stack([
-                gain_t, act_t, _dot(g_c, g_p, p_c, p_p), ptBp_t, p_norm_t,
+                gain_t, act_t, torch.sum(g_c * p_c) + gtp_p, ptBp_t,
+                p_norm_t,
             ]).cpu().numpy().astype(ft)
             with np.errstate(divide="ignore", invalid="ignore"):
                 tiny = abs(gain / ex_l2) < eps2

@@ -15,6 +15,7 @@ from psba_tpu_torch.ops.linearize_stream import (
     build_stream_tables,
 )
 from psba_tpu_torch.ops.reduce import indexed_sum
+from psba_tpu_torch.parallel.ctx import NO_MESH, MeshCtx
 
 # Dense-Schur cap in (camera x point) cells: schur="auto" takes the dense
 # encoding up to it and the covisibility-pair encoding above. The dense S
@@ -60,8 +61,10 @@ class SolverConfig(NamedTuple):
         any device. Named deviation: the reference's "auto" takes the XLA
         form for float32 off the TPU; the port keeps the kernels' plain
         versions on a CPU float32 run.
-    `s_reduce` only matters on a mesh (ROADMAP Queue 1 item 16), and
-    `s_precision` must be "highest" ("high": item 18)."""
+    `s_reduce` picks the collective of the S assembly on a mesh
+    (parallel.ctx.MeshCtx: "psum" all_reduce, "scatter" reduce_scatter +
+    all_gather), and `s_precision` must be "highest" ("high": ROADMAP
+    Queue 1 item 18)."""
 
     tau: float = C.PSBA_INIT_MU
     stop_thresh: float = C.PSBA_STOP_THRESH
@@ -116,14 +119,19 @@ def dense_encoding(schur: str, n_cams: int, n_pts: int) -> bool:
         schur == "auto" and n_cams * n_pts <= DENSE_MAX_ENTRIES)
 
 
-def _diag_minmax(K, q0, cams, pts, cam_idx, pt_idx, clamp):
-    """max / min-positive of diag(J^T J) from one Jacobian probe."""
+def _diag_minmax(K, q0, cams, pts, cam_idx, pt_idx, clamp, valid=None):
+    """max / min-positive of diag(J^T J) from one Jacobian probe; `valid`
+    [O] (bool or None) weighs out padded observations."""
     from psba_tpu_torch.core.jacobian import jacobians
 
     A, B = jacobians(K, q0, cams, pts, cam_idx, pt_idx, clamp=clamp)
+    a2, b2 = (A * A).sum(1), (B * B).sum(1)
+    if valid is not None:
+        w = valid[:, None].to(a2.dtype)
+        a2, b2 = a2 * w, b2 * w
     # fixed-order sums: the same bits, and so the same damping, on every run
-    dU = indexed_sum((A * A).sum(1), cam_idx, K.shape[0])
-    dV = indexed_sum((B * B).sum(1), pt_idx, pts.shape[0])
+    dU = indexed_sum(a2, cam_idx, K.shape[0])
+    dV = indexed_sum(b2, pt_idx, pts.shape[0])
     d = torch.cat([dU.reshape(-1), dV.reshape(-1)])
     mn = torch.min(torch.where(d > 0, d, torch.full_like(d, float("inf"))))
     return torch.max(d), mn
@@ -139,7 +147,7 @@ def resolve_damping(cfg: SolverConfig, pa: "ProblemArrays", cams,
         return cfg
     dtype = np_dtype(cams.dtype)
     mx, mn = _diag_minmax(pa.K, pa.q0, cams, pts, pa.cam_idx, pa.pt_idx,
-                          cfg.clamp_quat)
+                          cfg.clamp_quat, valid=pa.valid)
     ratio = float(mx) / max(float(mn), np.finfo(dtype).tiny)
     if cfg.tau * ratio < 1.0 / np.finfo(dtype).eps:
         return cfg._replace(damping="additive")
@@ -183,15 +191,22 @@ class ProblemArrays:
     pair_o1: torch.Tensor | None = None      # [N] int64
     pair_o2: torch.Tensor | None = None      # [N] int64
     pair_bucket: torch.Tensor | None = None  # [N] int64
+    # [O] bool, False on the padding of a shard (parallel.shard); None when
+    # every observation is real
+    valid: torch.Tensor | None = None
     # [C, 9] camera rows K | q0, built once here for the dense kernels
     kq: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # [O] `valid` in the working dtype, the stream kernels' mask
+    valid_f: torch.Tensor | None = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "kq", torch.cat([self.K, self.q0], dim=1))
+        object.__setattr__(self, "valid_f", None if self.valid is None
+                           else self.valid.to(self.K.dtype))
 
     @staticmethod
     def from_problem(prob, dtype=None, device="cpu", schur="auto",
-                     backend="auto") -> "ProblemArrays":
+                     backend="auto", valid=None) -> "ProblemArrays":
         """Build the tensors of a psba_tpu_torch.problem.BAProblem on
         `device` in `dtype` (default: the problem's own). `schur` picks the
         encoding: "dense", "pairs", or "auto" (dense up to
@@ -200,7 +215,10 @@ class ProblemArrays:
         read them: the kernel path also gets the stream tables of the
         camera-ordered walk and, dense, the grid tables with their
         occupancy table; the XLA form gets neither, so a float64 dense
-        solve does not hold the grid."""
+        solve does not hold the grid. `valid` [O] (numpy bool) marks the
+        real observations of a padded problem (parallel.shard); padded
+        observations must repeat a real one, stay out of blk_idx and the
+        pair list (bucket C*C), and keep the stream sorted by point."""
         schur = ("dense" if dense_encoding(schur, prob.n_cams, prob.n_pts)
                  else "pairs")
         dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)
@@ -232,6 +250,9 @@ class ProblemArrays:
                                          device=device)
             enc.update(cam_idx32=stream.cam32, pt_idx32=stream.pt32,
                        stream=stream)
+        if valid is not None:
+            enc["valid"] = torch.as_tensor(np.asarray(valid, bool),
+                                           device=device)
         return ProblemArrays(
             K=f(prob.K), q0=f(prob.q0), obs=f(prob.obs),
             cam_idx=i(prob.cam_idx), pt_idx=i(prob.pt_idx), **enc,
@@ -288,9 +309,13 @@ class OptState:
     aux: torch.Tensor | None = None
 
     @staticmethod
-    def init(pa: ProblemArrays, cams, pts, clamp=False) -> "OptState":
+    def init(pa: ProblemArrays, cams, pts, clamp=False,
+             ctx: MeshCtx = NO_MESH) -> "OptState":
+        """The residual and its L2 (summed over the mesh of `ctx`) at
+        (cams, pts)."""
         from psba_tpu_torch.core.residual import error_l2, residuals
 
         ex = residuals(pa.K, pa.q0, cams, pts, pa.obs, pa.cam_idx,
                        pa.pt_idx, clamp=clamp)
-        return OptState(cams=cams, pts=pts, ex=ex, ex_l2=error_l2(ex))
+        return OptState(cams=cams, pts=pts, ex=ex,
+                        ex_l2=ctx.psum(error_l2(ex, pa.valid), tag="init"))

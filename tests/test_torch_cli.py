@@ -26,11 +26,11 @@ REPORT = ("time eclipse ", "initial error: ", "final error: ",
           "total iteration: ", "flag: ")
 
 
-def _cli(*args, env=None, check=True):
+def _cli(*args, env=None, check=True, timeout=300):
     e = dict(os.environ, PYTHONPATH=str(REPO), **(env or {}))
     out = subprocess.run(
         [sys.executable, "-m", "psba_tpu_torch.cli", *args], cwd=str(REPO),
-        env=e, capture_output=True, text=True, timeout=300)
+        env=e, capture_output=True, text=True, timeout=timeout)
     if check:
         assert out.returncode == 0, out.stderr
     return out
@@ -142,8 +142,7 @@ def test_cli_dataset_from_psba_data(tmp_path, ref_f64):
     assert got["iterations"] == ref.iterations
 
 
-@pytest.mark.parametrize("args,item", [(("--mesh", "2"), "item 16"),
-                                       (("--s-precision", "high"),
+@pytest.mark.parametrize("args,item", [(("--s-precision", "high"),
                                         "item 18")])
 def test_cli_refuses_unported_options(args, item):
     out = _cli("--cams", MINI_BAL, "--bal", "--device", "cpu", *args,
@@ -151,12 +150,34 @@ def test_cli_refuses_unported_options(args, item):
     assert out.returncode != 0 and item in out.stderr
 
 
+def test_cli_mesh_two_cpu_processes(cli_run):
+    """--mesh 2 --device cpu: the sharded solve in two gloo processes meets
+    the single-device CLI run: the same phases and iterations, final error
+    to 1e-9 relative (float64, sums over the shards in another order).
+    The command, ranks and all, has 120 s."""
+    got = _json(_cli("--cams", MINI_BAL, "--bal", "--json", "--device",
+                     "cpu", "--mesh", "2", timeout=120))
+    one = _json(cli_run[0])
+    np.testing.assert_allclose(got["final_error"], one["final_error"],
+                               rtol=1e-9)
+    assert got["iterations"] == one["iterations"]
+    assert got["phases"] == one["phases"]
+
+
+def test_cli_mesh_refuses_checkpoint_and_polish():
+    out = _cli("--cams", MINI_BAL, "--bal", "--device", "cpu", "--mesh",
+               "2", "--polish", "2", check=False)
+    assert out.returncode != 0 and "--mesh" in out.stderr
+
+
 def test_cli_imports_no_jax():
     """main() of the CLI, run in a fresh interpreter, imports neither jax
-    nor any module of psba_tpu."""
+    nor any module of psba_tpu; nor do the port's parallel modules."""
     code = (
         "import sys\n"
         "from psba_tpu_torch import cli\n"
+        "import psba_tpu_torch.parallel.distributed\n"
+        "import psba_tpu_torch.parallel.shard\n"
         f"cli.main(['--cams', {MINI_BAL!r}, '--bal', '--device', 'cpu', "
         "'--max-iters', '3', '--json'])\n"
         "bad = [m for m in sys.modules if m in ('jax', 'psba_tpu') or "

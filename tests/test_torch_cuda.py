@@ -856,3 +856,31 @@ def test_tile_mask_read_in_batches(cuda, kernel, monkeypatch):
     monkeypatch.setattr(rd, "_kernel", lambda: (real()[0], 1))
     monkeypatch.setattr(rd, "_jgram_blocks", lambda n: 1)
     _check_tile_mask(cuda, kernel, *_clustered_ring(cuda, n_pts=10_000))
+
+
+@pytest.mark.parametrize("schur", ["dense", "pairs"])
+def test_one_nccl_rank_same_bits_as_lm_run(cuda, schur):
+    """solve_sharded(n_devices=1) on the card: one NCCL rank in this
+    process, so every collective passes its input through. Its float32 LM
+    run (the kernels) gives the bits of OptState.init + lm_run on
+    ProblemArrays.from_problem in the caller's point order, and launches
+    the path's kernels."""
+    from psba_tpu_torch.parallel.shard import solve_sharded
+    from psba_tpu_torch.solvers import OptState, ProblemArrays, SolverConfig
+    from psba_tpu_torch.solvers.lm import lm_run
+
+    prob, _pa, _cams, _pts = _problem(cuda, seed=9)
+    f32 = torch.float32
+    cfg = SolverConfig.for_dtype(f32, max_iters=4, lm_switch_count=10_000,
+                                 damping="additive")
+    got = solve_sharded(prob, cfg, n_devices=1, dtype=f32, schur=schur,
+                        device="cuda")
+    pa = ProblemArrays.from_problem(prob, dtype=f32, device=cuda,
+                                    schur=schur)
+    t = lambda a: torch.as_tensor(a, dtype=f32, device=cuda)
+    st = lm_run(pa, OptState.init(pa, t(prob.cams), t(prob.pts)), cfg)
+    assert got.phases == [("lm", st.itno, st.flag)]
+    assert np.array_equal(got.cams, st.cams.cpu().numpy())
+    assert np.array_equal(got.pts, st.pts.cpu().numpy())
+    assert got.final_l2 == float(st.ex_l2)
+    assert got.collectives["S"]["calls"] > 0

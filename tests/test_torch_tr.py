@@ -141,9 +141,12 @@ def _model_step(pu, pb, g, Buu, Bub, Bbb, delta):
 def _step(pu, pb, g, B, delta):
     Buu, Bub, Bbb = pu @ B @ pu, pu @ B @ pb, pb @ B @ pb
     sc = lambda x: torch.tensor(x, dtype=torch.float64)
-    out_c, out_p, out_norm = ttr._subspace_step(
-        ttr._dot, *_split(pu), *_split(pb), *_split(g), sc(Buu), sc(Bub),
-        sc(Bbb), delta)
+    from psba_tpu_torch.parallel.ctx import NO_MESH
+
+    prep = ttr._subspace_prep(NO_MESH, *_split(pu), *_split(pb), *_split(g),
+                              sc(Buu), sc(Bub), sc(Bbb))
+    out_c, out_p, out_norm = ttr._subspace_pick(prep, *_split(pu),
+                                                *_split(pb), delta)
     got = np.concatenate([out_c.numpy().ravel(), out_p.numpy().ravel()])
     return got, float(out_norm), _model_step(pu, pb, g, Buu, Bub, Bbb, delta)
 
