@@ -91,6 +91,23 @@ Phases, in order; any failure raises and the script exits nonzero:
      with s_reduce "psum" and "scatter", against phase 3b's solve, every
      dense kernel launched on each rank; (see one_rank_phase and
      two_rank_phase);
+  3h. s_precision="high" (the dense3 S product as 3xTF32): (a) S of the
+     138-camera problem's first try computed "high", "highest" and in
+     single-pass TF32, each against float64 (normwise relative error; high
+     at most 2 x highest + 2^-21 and a tenth of TF32's), and CUDA-event ms
+     of the S products and the TF32 splits; (b, c) the default solve of the
+     138-camera problem and of ladybug138_real in turns "highest", "high",
+     "high", "highest", counters reset and read around each: final L2 of
+     "high" within 1e-3 of "highest", a normal stop, the dense kernels
+     launched, TF32 off after each; ms per LM / TR iteration and peak
+     device memory; (d) utils/roofline.summarize of a 138-camera LM
+     iteration at both precisions;
+  8. the front-end (psba_tpu_torch.frontend) on the card: 8 views at
+     1024 x 768 of 600 planted points, n_features=1024, sequence_problem
+     on CUDA against the CPU (corners, matches, poses to 1e-4), each
+     stage's ms, then the problem solved on the card in float32 (counters
+     reset and read around it; the LM path's kernels launched, RMS under
+     1 px);
   5. a JSON line of the kernels and the paths, then, last, the device JSON
      line.
 It imports nothing of JAX.
@@ -108,32 +125,29 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
+sys.path.insert(0, REPO)
+# the H100's peaks and the kernels' per-cell operation counts, from the
+# port's roofline model (without the package beside it the script stops
+# here)
+from psba_tpu_torch.utils.roofline import (  # noqa: E402
+    CELL_LINEARIZE_FLOPS,
+    GAIN_DENSE_FLOPS,
+    H100,
+    LINEARIZE_DENSE_FLOPS,
+    LINEARIZE_DENSE_U_FLOPS,
+    LINEARIZE_STREAM_FLOPS,
+    PAIR_STREAM_FLOPS,
+    RESIDUAL_L2_FLOPS,
+    RESIDUAL_L2_GAIN_FLOPS,
+)
+
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
 # tensor cores. The bound of a kernel is the larger of its bytes over the
 # first and its flops over the second.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+HBM_BYTES_PER_S = H100.hbm_gbps * 1e9
+F32_FLOPS_PER_S = H100.f32_tflops * 1e12
 # float64 on the tensor cores (DGEMM), same data sheet
 F64_TC_FLOPS_PER_S = 67e12
-# float32 operations per observed cell or observation, counted from
-# csrc/cell_model.cuh and each kernel's own arithmetic: residual and forward
-# model 86, Jacobian rows 211 (cell_linearize about 300 in all)
-CELL_LINEARIZE_FLOPS = 300
-CELL_RESIDUAL_FLOPS = 86
-# the dense grid: W = A^T B (54), V (24), gb (12), U (84), ga (24)
-LINEARIZE_DENSE_FLOPS = CELL_LINEARIZE_FLOPS + 198
-LINEARIZE_DENSE_U_FLOPS = 84 + 24
-# two residuals and the factored gain / new_l2 sums
-GAIN_DENSE_FLOPS = 2 * CELL_RESIDUAL_FLOPS + 8
-# the stream with the TR flags: mask (20), U (84), ga (24), l2 (4)
-LINEARIZE_STREAM_FLOPS = CELL_LINEARIZE_FLOPS + 132
-# the trial-step residual and its masked square (4); with the old residual
-# also the masked factored gain (eo - en)(eo + en) summed over two rows (9)
-RESIDUAL_L2_FLOPS = CELL_RESIDUAL_FLOPS + 4
-RESIDUAL_L2_GAIN_FLOPS = RESIDUAL_L2_FLOPS + 9
-# the stream with the pair path's flags: W = A^T B (54), B^T B (27),
-# B^T ex (12), the mask of B (6)
-PAIR_STREAM_FLOPS = LINEARIZE_STREAM_FLOPS + 99
 
 # The pair path's configuration, final961_pairs: BAL's Final-961 camera and
 # point counts (961 cameras, 187,103 points) on the synthetic ring, about 9
@@ -1337,6 +1351,34 @@ def main(argv) -> int:
          "ladybug138_real, default: never entered TR")
     lb_runs["lm3"] = lm_natural_vs_clustered(lb, cfg_lm, dev)
 
+    # 3h. s_precision="high": the dense3 S products as 3xTF32
+    t3h = time.perf_counter()
+    high = {"accuracy": high_accuracy(prob, cfg, dev)}
+    torch.cuda.empty_cache()
+    for label, p in (("synthetic138_dense", prob), ("ladybug138_real", lb)):
+        high[label] = high_solves(label, p, cfg, dev, reset, read, ok_flags)
+    # (d) the roofline of one 138-camera LM iteration at each precision,
+    # against the mean ms per LM iteration of its two runs
+    from psba_tpu_torch.utils import roofline
+
+    high["roofline"] = {}
+    for prec in ("highest", "high"):
+        lm_ms = float(np.mean([v["lm_iter_ms"] for v in
+                               high["synthetic138_dense"]
+                               if v["precision"] == prec]))
+        summ = roofline.summarize(prob.n_cams, prob.n_pts, prob.n_obs,
+                                  lm_ms, precision=prec)
+        it = roofline.lm_iter_roofline(prob.n_cams, prob.n_pts, prob.n_obs,
+                                       precision=prec)
+        high["roofline"][prec] = dict(summ, measured_lm_iter_ms=lm_ms,
+                                      stage_ms=it.stage_ms)
+        print(f"[3h] (d) roofline, {prec}, measured {lm_ms:.3f} ms per LM "
+              f"iteration: {summ}; stage bounds (ms) "
+              f"{ {k: round(v, 4) for k, v in it.stage_ms.items()} }",
+              flush=True)
+    high["seconds"] = time.perf_counter() - t3h
+    print(f"[3h] {high['seconds']:.1f} s", flush=True)
+
     # 3d. the float64 path: the default solve in float64 (the XLA form)
     f64 = torch.float64
     cfg64 = SolverConfig.for_dtype(f64, record_history=True)
@@ -1628,6 +1670,12 @@ def main(argv) -> int:
     for k in kern:
         need(seen[k] > 0, f"phase 7: kernel {k} never launched")
 
+    # ---- phase 8: the front-end on the card
+    t8 = time.perf_counter()
+    fe = frontend_phase(dev, reset, read, lm_path)
+    fe["seconds"] = time.perf_counter() - t8
+    print(f"[8] {fe['seconds']:.1f} s", flush=True)
+
     # ---- phase 5: output
     src = {
         "linearize_dense": ("psba_tpu_torch/csrc/linearize_dense.cu",
@@ -1654,7 +1702,13 @@ def main(argv) -> int:
              launches_dense_lm_path=launches_lm[k],
              launches_pairs_default=pd["launches"][k],
              launches_pairs_lm_path=pl["launches"][k],
-             launches_sharded=par["launches"][k], **rows[k])
+             launches_sharded=par["launches"][k],
+             launches_high={label: [v["launches"][k] for v in runs
+                                    if v["precision"] == "high"]
+                            for label, runs in high.items()
+                            if label in ("synthetic138_dense",
+                                         "ladybug138_real")},
+             launches_frontend=fe["launches"][k], **rows[k])
         for k in src
     ]
     kernels[src_names.index("linearize_stream")]["launches_point_pass"] = {
@@ -1707,6 +1761,8 @@ def main(argv) -> int:
             "cli": cli,
         },
         "parallel": par,
+        "high": high,
+        "frontend": fe,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2058,6 +2114,342 @@ def two_rank_phase(prob, res, cfg, dev, dense_path) -> dict:
         need(r.collectives["S"]["calls"] > 0, f"7b {s_reduce}: no S "
              "collective")
     return out
+
+
+def s_error(S, S64) -> float:
+    """Normwise relative error ||S - S64||_F / ||S64||_F."""
+    import torch
+
+    return float(torch.linalg.norm(S.double() - S64) / torch.linalg.norm(S64))
+
+
+def high_accuracy(prob, cfg, dev) -> dict:
+    """Phase 3h (a) and the S timings of (c): the first LM try of the
+    138-camera problem's float32 solve (its starting point, mu = tau *
+    max diag), S from that try's ZW3 and V in three ways, "high" (3xTF32),
+    "highest" (float32) and single-pass TF32 (the products with TF32 on),
+    each against S computed in float64 from the same float32 inputs:
+    normwise relative errors, with err_high <= 2 err_highest + 2^-21 (what
+    "high" promises) and err_high <= err_tf32 / 10 (the check tells 3xTF32
+    from TF32). Then CUDA-event milliseconds of schur_S_dense3 at both
+    precisions (ZW3 split beforehand, as the solvers split it once per
+    iteration), of its products alone, and of the splits."""
+    import torch
+
+    from psba_tpu_torch.core import schur as sc
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    f32 = torch.float32
+    pa = ProblemArrays.from_problem(prob, dtype=f32, device=dev)
+    cams = torch.as_tensor(prob.cams, dtype=f32, device=dev)
+    pts = torch.as_tensor(prob.pts, dtype=f32, device=dev)
+    ZW0, ZW1, ZW2, Vp, _gbp, _Pp, U, _ga = ld.linearize_dense(
+        pa.K, pa.q0, cams, pts, pa.obs_du, pa.obs_dv, pa.valid_d,
+        want_u=True, kq=pa.kq)
+    ZW3 = (ZW0, ZW1, ZW2)
+    mu = cfg.tau * float(sc.max_diag_planar(U, Vp, prob.n_pts))
+    Ud = U + mu * torch.eye(6, dtype=f32, device=dev)
+    Vinv, _ok = sc.inv3x3_planar3(sc.damp_v_planar(Vp, mu))
+    d = lambda t: tuple(x.double() for x in t)
+    S64, ZY64 = sc.schur_S_dense3(Ud.double(), d(ZW3), Vinv.double())
+    C = Ud.shape[0]
+    off64 = sum(ZY64[j] @ ZW3[j].double().T for j in range(3))
+    del ZY64
+    S_hi, ZY3 = sc.schur_S_dense3(Ud, ZW3, Vinv, precision="high")
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "3h: allow_tf32 left on by the 'high' product")
+    S_fp, _ = sc.schur_S_dense3(Ud, ZW3, Vinv)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        off_tf = sum(ZY3[j] @ ZW3[j].T for j in range(3))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    S_tf = (-off_tf).reshape(C, 6, C, 6)
+    S_tf.diagonal(dim1=0, dim2=2).add_(Ud.permute(1, 2, 0))
+    S_tf = S_tf.reshape(6 * C, 6 * C)
+    err = {"high": s_error(S_hi, S64), "highest": s_error(S_fp, S64),
+           "tf32": s_error(S_tf, S64)}
+    # the products alone (S - blockdiag U), against their own norm
+    blk = torch.block_diag(*Ud.double())
+    err_off = {k: float(torch.linalg.norm((blk - S.double()) - off64)
+                        / torch.linalg.norm(off64))
+               for k, S in (("high", S_hi), ("highest", S_fp),
+                            ("tf32", S_tf))}
+    print(f"[3h] (a) S of the 138-camera problem's first try (n = {6 * C}, "
+          f"Pp = {ZW0.shape[1]}): normwise relative error against float64 "
+          f"high {err['high']:.3e}, highest {err['highest']:.3e}, "
+          f"single-pass TF32 {err['tf32']:.3e}; of the products alone "
+          f"high {err_off['high']:.3e}, highest {err_off['highest']:.3e}, "
+          f"TF32 {err_off['tf32']:.3e}", flush=True)
+    need(err["high"] <= 2 * err["highest"] + 2.0 ** -21,
+         f"3h: 3xTF32 S error {err['high']:.3e} above 2 x float32's "
+         f"{err['highest']:.3e} + 2^-21")
+    need(err["high"] <= err["tf32"] / 10,
+         f"3h: 3xTF32 S error {err['high']:.3e} not a tenth of TF32's "
+         f"{err['tf32']:.3e}")
+    del S64, off64, S_tf, off_tf, blk
+
+    # why the head x head products go in chunks: a product of TF32-exact
+    # operands (ZY_0's and ZW_0's heads) summed over K terms by the tensor
+    # cores, against float64, for growing K, then over all Pp in chunks of
+    # sc.TF32_CHUNK (schur_S_dense3's "high"), and in float32
+    zw_split = sc.split_dense3(ZW3, "high")
+    yh, wh = sc._split_tf32(ZY3[0])[0], zw_split[0][0]
+    acc = {}
+    for K in (sc.TF32_CHUNK, 2048, yh.shape[1]):
+        ref = yh[:, :K].double() @ wh[:, :K].double().T
+        nref = torch.linalg.norm(ref)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            acc[f"tf32_K{K}"] = float(torch.linalg.norm(
+                (yh[:, :K] @ wh[:, :K].T).double() - ref) / nref)
+            if K == yh.shape[1]:
+                acc["tf32_chunked"] = float(torch.linalg.norm(
+                    sc._chunked_tf32(yh, wh).double() - ref) / nref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if K == yh.shape[1]:
+            acc["float32"] = float(torch.linalg.norm(
+                (yh @ wh.T).double() - ref) / nref)
+    del ref, yh, wh
+    print(f"[3h] (a) tensor-core sums of TF32-exact heads (ZY_0 x ZW_0), "
+          f"normwise against float64: {acc}", flush=True)
+    ms = {
+        "S_try_highest": cuda_ms(lambda: sc.schur_S_dense3(Ud, ZW3, Vinv)),
+        "S_try_high": cuda_ms(lambda: sc.schur_S_dense3(
+            Ud, ZW3, Vinv, precision="high", zw_split=zw_split)),
+        "products_highest": cuda_ms(
+            lambda: sum(ZY3[j] @ ZW3[j].T for j in range(3))),
+        "products_high_with_zy_split": cuda_ms(
+            lambda: sc._off_3xtf32(ZY3, zw_split)),
+        "split_zy": cuda_ms(lambda: [sc._split_tf32(y) for y in ZY3]),
+        "split_zw": cuda_ms(lambda: sc.split_dense3(ZW3, "high")),
+    }
+    ms["products_high"] = (ms["products_high_with_zy_split"]
+                           - ms["split_zy"])
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "3h: allow_tf32 left on after the timings")
+    flops = 2.0 * (6 * C) ** 2 * 3 * ZW0.shape[1]
+    print(f"[3h] (c) ms per try, CUDA events: schur_S_dense3 highest "
+          f"{ms['S_try_highest']:.4f}, high {ms['S_try_high']:.4f} (ZW3 "
+          f"split once an iteration: {ms['split_zw']:.4f}); the products "
+          f"alone: highest {ms['products_highest']:.4f} ms "
+          f"({flops / ms['products_highest'] / 1e9:.1f} TFLOP/s), high "
+          f"{ms['products_high']:.4f} ms after the ZY3 split's "
+          f"{ms['split_zy']:.4f} ms", flush=True)
+    return dict(err=err, err_products=err_off, tf32_sums=acc, ms=ms,
+                n=6 * C, Pp=ZW0.shape[1], mu=mu)
+
+
+def high_solves(label, prob, cfg, dev, reset, read, ok_flags) -> dict:
+    """Phase 3h (b) and (c) on one problem: the default float32 solve in
+    turns "highest", "high", "high", "highest", each with the launch
+    counters set to 0 just before and read just after, the peak device
+    memory reset before it. Each "high" run: final L2 within 1e-3 of the
+    first "highest" run's, a normal stop, linearize_dense, spd_solve,
+    gain_dense and jgram_dense launched, TF32 off after it."""
+    import numpy as np
+    import psba_tpu_torch
+    import torch
+
+    f32 = torch.float32
+    psba_tpu_torch.solve(prob, cfg._replace(max_iters=8, s_precision="high"),
+                         dtype=f32, device=dev)        # warm-up
+    runs = []
+    for prec in ("highest", "high", "high", "highest"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        r = psba_tpu_torch.solve(prob, cfg._replace(s_precision=prec),
+                                 dtype=f32, device=dev)
+        got = read()
+        per = per_phase_iterations(r)
+        runs.append(dict(
+            precision=prec, final_l2=r.final_l2, flag=r.flag_name,
+            phases=r.phases, iterations=per, launches=got,
+            lm_iter_ms=1e3 * r.phase_seconds["lm"] / per["lm"],
+            tr_iter_ms=(1e3 * r.phase_seconds["tr"] / per["tr"]
+                        if "tr" in per else None),
+            peak_gib=peak_gib(dev),
+            allow_tf32_after=torch.backends.cuda.matmul.allow_tf32))
+        v = runs[-1]
+        print(f"[3h] {label} {prec}: {r}; phases {r.phases}; ms per LM "
+              f"iteration {v['lm_iter_ms']:.3f}, per TR iteration "
+              f"{v['tr_iter_ms'] or float('nan'):.3f}; peak "
+              f"{v['peak_gib']:.3f} GiB; launches {got}", flush=True)
+    base = runs[0]["final_l2"]
+    for v in runs:
+        need(np.isfinite(v["final_l2"]) and v["flag"] in ok_flags,
+             f"3h {label} {v['precision']}: abnormal stop {v['flag']}")
+        need(not v["allow_tf32_after"],
+             f"3h {label} {v['precision']}: allow_tf32 on after the solve")
+        if v["precision"] != "high":
+            continue
+        rel = abs(v["final_l2"] - base) / base
+        v["rel_final_l2_to_highest"] = rel
+        print(f"[3h] {label} high: final L2 rel to highest {rel:.3e} "
+              "(tolerance 1e-3)", flush=True)
+        need(rel <= 1e-3, f"3h {label}: 'high' final L2 {rel:.3e} from "
+             "'highest'")
+        for k in ("linearize_dense", "spd_solve", "gain_dense",
+                  "jgram_dense"):
+            need(v["launches"][k] > 0,
+                 f"3h {label} high: kernel {k} not launched")
+    return runs
+
+
+def render(uv, H, W):
+    """tests/test_frontend.py's render: a 5x5 texture for each point,
+    seeded by its index, with a strong centre, on a dark gradient."""
+    import numpy as np
+
+    img = np.linspace(0, 0.1, W)[None, :] * np.ones((H, 1))
+    for i, (u, v) in enumerate(uv):
+        ui, vi = int(round(u)), int(round(v))
+        if 3 <= ui < W - 3 and 3 <= vi < H - 3:
+            tex = np.random.default_rng(1000 + i).uniform(0.2, 1.0, (5, 5))
+            tex[2, 2] = 1.5
+            img[vi - 2:vi + 3, ui - 2:ui + 3] += tex
+    return img
+
+
+def frontend_phase(dev, reset, read, lm_path) -> dict:
+    """Phase 8: the front-end on the card. 8 views at 1024 x 768 of 600
+    planted points (the render of tests/test_frontend.py; the camera turns
+    0.02 rad about y and moves 0.15 to the side a view), n_features=1024:
+    sequence_problem on CUDA against the same call on the CPU (the
+    corners with a positive score as sets, the valid matches as sets of
+    pixel pairs, the poses to 1e-4), each stage's milliseconds on the card,
+    then the problem solved on the card in float32 (the kernels; the
+    front-end's problem is float64, which would take the XLA form) with
+    the counters set to 0 just before and read just after: the LM path's
+    kernels launched and the RMS under 1 px."""
+    import numpy as np
+    import psba_tpu_torch
+    import torch
+
+    from psba_tpu_torch.frontend import pipeline as fp
+    from psba_tpu_torch.frontend.features import detect_and_describe
+    from psba_tpu_torch.frontend.matching import match_descriptors
+    from psba_tpu_torch.frontend.twoview import (
+        decompose_essential,
+        triangulate,
+    )
+    from psba_tpu_torch.solvers import SolverConfig
+
+    K = [800.0, 512.0, 384.0, 1.0, 0.0]
+    rng = np.random.default_rng(0)
+    X = rng.uniform([-3.0, -2.2, 7.0], [3.0, 2.2, 14.0], size=(600, 3))
+    imgs = []
+    for i in range(8):
+        a = 0.02 * i
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        Xc = X @ R.T + np.array([-0.15 * i, 0.0, 0.0])
+        imgs.append(render(Xc[:, :2] / Xc[:, 2:3] * K[0]
+                           + np.array(K[1:3]), 768, 1024))
+    kw = dict(n_features=1024)
+
+    # CUDA against the CPU: corners, matches, poses
+    feats = {}
+    for d in ("cuda", "cpu"):
+        feats[d] = [detect_and_describe(im, k=1024, device=d) for im in imgs]
+    n_corners = []
+    for fc, fh in zip(feats["cuda"], feats["cpu"]):
+        sets = [set(map(tuple, f[0][f[1] > 0].cpu().numpy().tolist()))
+                for f in (fc, fh)]
+        n_corners.append(len(sets[0]))
+        need(sets[0] == sets[1], "8: the corners (score > 0) on CUDA and "
+             f"the CPU differ in {len(sets[0] ^ sets[1])}")
+    n_matches = []
+    for i in range(7):
+        pairs = []
+        for d in ("cuda", "cpu"):
+            (xy1, s1, d1), (xy2, s2, d2) = feats[d][i], feats[d][i + 1]
+            idx2, valid = match_descriptors(d1, d2, s1, s2)
+            xy1, xy2 = xy1.cpu().numpy(), xy2.cpu().numpy()
+            idx2, valid = idx2.cpu().numpy(), valid.cpu().numpy()
+            pairs.append({(*xy1[a], *xy2[idx2[a]])
+                          for a in np.flatnonzero(valid)})
+        n_matches.append(len(pairs[0]))
+        need(pairs[0] == pairs[1], f"8: pair {i}: the valid matches on CUDA "
+             f"and the CPU differ in {len(pairs[0] ^ pairs[1])}")
+    # twice on the card: the first call includes the libraries' first use
+    # (the batched SVDs, the determinants)
+    seq_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p_gpu = fp.sequence_problem(imgs, K, device="cuda", **kw)
+        torch.cuda.synchronize()
+        seq_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    p_cpu = fp.sequence_problem(imgs, K, device="cpu", **kw)
+    seq_cpu_s = time.perf_counter() - t
+    pose_gap = {}
+    for f in ("q0", "cams"):
+        a, b = getattr(p_gpu, f), getattr(p_cpu, f)
+        need(a.shape == b.shape, f"8: {f} shapes differ")
+        pose_gap[f] = float(np.max(np.abs(a - b)) / max(np.abs(b).max(),
+                                                         1.0))
+    print(f"[8] front-end, 8 views 1024x768, 600 planted points: corners "
+          f"(score > 0) per view {n_corners}, valid matches per pair "
+          f"{n_matches}, all equal on CUDA and the CPU; poses CUDA vs CPU "
+          f"q0 {pose_gap['q0']:.3e}, cams {pose_gap['cams']:.3e} "
+          f"(tolerance 1e-4); problem C={p_gpu.n_cams} P={p_gpu.n_pts} "
+          f"O={p_gpu.n_obs} (CPU: P={p_cpu.n_pts}); sequence_problem "
+          f"{seq_s[0]:.3f} s (first call), {seq_s[1]:.3f} s on CUDA, "
+          f"{seq_cpu_s:.3f} s on the CPU", flush=True)
+    need(max(pose_gap.values()) <= 1e-4, f"8: poses differ {pose_gap}")
+
+    # each stage on the card, in the order sequence_problem runs them
+    def stage(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    norm = fp._normalizer(K)
+    st = {}
+    fts, st["detect_describe_8"] = stage(lambda: [
+        detect_and_describe(im, k=1024, device="cuda") for im in imgs])
+    xyn = [norm(f[0]) for f in fts]
+    m, st["match_7"] = stage(lambda: [
+        match_descriptors(fts[i][2], fts[i + 1][2], fts[i][1],
+                          fts[i + 1][1]) for i in range(7)])
+    x2n = [xyn[i + 1][m[i][0].long()] for i in range(7)]
+    ev, st["ransac_7"] = stage(lambda: [
+        fp._estimate_E(xyn[i], x2n[i], m[i][1], 64, K[0], seed=i)
+        for i in range(7)])
+    rt, st["decompose_7"] = stage(lambda: [
+        decompose_essential(ev[i][0], xyn[i], x2n[i], ev[i][1])
+        for i in range(7)])
+    _, st["triangulate_7"] = stage(lambda: [
+        triangulate(rt[i][0], rt[i][1], xyn[i], x2n[i]) for i in range(7)])
+    st["sequence_problem_first"] = 1e3 * seq_s[0]
+    st["sequence_problem"] = 1e3 * seq_s[1]
+    print("[8] stage ms on CUDA: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in st.items()), flush=True)
+
+    cfg = SolverConfig.for_dtype(torch.float32)
+    psba_tpu_torch.solve(p_gpu, cfg._replace(max_iters=2),
+                         dtype=torch.float32, device=dev)    # warm-up
+    reset()
+    res = psba_tpu_torch.solve(p_gpu, cfg, dtype=torch.float32, device=dev)
+    got = read()
+    rms = float(np.sqrt(res.final_l2 / p_gpu.n_obs))
+    rms0 = float(np.sqrt(res.initial_l2 / p_gpu.n_obs))
+    print(f"[8] solve on the card, float32: {res}; phases {res.phases}; RMS "
+          f"{rms0:.4f} -> {rms:.4f} px; launches {got}", flush=True)
+    need(rms < 1.0 and res.final_l2 <= res.initial_l2,
+         f"8: RMS {rms:.4f} px after the solve")
+    for k in lm_path:
+        need(got[k] > 0, f"8: kernel {k} not launched by the solve")
+    return dict(corners=n_corners, matches=n_matches, pose_gap=pose_gap,
+                C=p_gpu.n_cams, P=p_gpu.n_pts, O=p_gpu.n_obs,
+                stage_ms=st, sequence_cpu_s=seq_cpu_s, rms_px=rms,
+                initial_rms_px=rms0, phases=res.phases, launches=got)
 
 
 def peak_gib(dev) -> float:

@@ -59,9 +59,9 @@ def build_parser():
                         "precision)")
     p.add_argument("--s-precision", choices=["highest", "high"],
                    default="highest",
-                   help="precision of the dense Schur products; only "
-                        "'highest' runs here ('high': ROADMAP Queue 1 "
-                        "item 18)")
+                   help="precision of the dense Schur S product: full "
+                        "float32, or 'high' = 3xTF32 on the card (about "
+                        "2^-21 relative; float32 on the CPU)")
     p.add_argument("--mesh", type=int, default=1,
                    help="shard the points over N processes, one device "
                         "each (N cards over NCCL; with --device cpu, N CPU "
@@ -87,9 +87,6 @@ def main(argv=None):
         sys.exit("error: --mesh > 1 takes neither --checkpoint nor --polish "
                  "(the sharded solve has no checkpoints and no float64 "
                  "polish)")
-    if args.s_precision != "highest":
-        sys.exit("error: --s-precision high: its Hopper mapping is not "
-                 "decided yet (ROADMAP Queue 1 item 18)")
 
     import numpy as np
     import torch
@@ -135,15 +132,18 @@ def main(argv=None):
             else 5
         ),
         damping=args.damping,
+        s_precision=args.s_precision,
         record_history=args.verbose,
     )
     dtype = torch.float32 if args.f32 else None
-    start = "tr" if args.solver == "tr" else "lm"
     if args.mesh > 1:
+        # as the reference's CLI: the sharded solve starts in LM whatever
+        # --solver says (there it only sets lm_switch_count)
         res = solve_sharded(prob, cfg, n_devices=args.mesh, dtype=dtype,
-                            start=start, device=args.device)
+                            device=args.device)
     else:
-        res = solve(prob, cfg, dtype=dtype, device=args.device, start=start,
+        res = solve(prob, cfg, dtype=dtype, device=args.device,
+                    start="tr" if args.solver == "tr" else "lm",
                     checkpoint_dir=args.checkpoint, polish_iters=args.polish)
     if args.verbose:
         print(res.format_history(), file=sys.stderr)

@@ -884,3 +884,120 @@ def test_one_nccl_rank_same_bits_as_lm_run(cuda, schur):
     assert np.array_equal(got.pts, st.pts.cpu().numpy())
     assert got.final_l2 == float(st.ex_l2)
     assert got.collectives["S"]["calls"] > 0
+
+
+def _dense_try(cuda, n_cams, n_pts, seed=0):
+    """ZW3, U, Vinv of one damped dense3 try on a synthetic problem."""
+    from psba_tpu_torch.core import schur as sc
+    from psba_tpu_torch.io import synthetic_problem
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.solvers import ProblemArrays
+
+    prob = synthetic_problem(n_cams=n_cams, n_pts=n_pts, seed=seed)
+    pa = ProblemArrays.from_problem(prob, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(seed)
+    cams = torch.as_tensor(prob.cams + np.concatenate(
+        [1e-3 * rng.standard_normal((prob.n_cams, 3)),
+         1e-2 * rng.standard_normal((prob.n_cams, 3))], axis=1),
+        dtype=torch.float32, device=cuda)
+    pts = torch.as_tensor(prob.pts, dtype=torch.float32, device=cuda)
+    ZW0, ZW1, ZW2, Vp, _gbp, _Pp, U, _ga = ld.linearize_dense(
+        pa.K, pa.q0, cams, pts, pa.obs_du, pa.obs_dv, pa.valid_d,
+        want_u=True)
+    mu = 1e-3 * float(torch.diagonal(U, dim1=-2, dim2=-1).max())
+    Vinv, _ok = sc.inv3x3_planar3(sc.damp_v_planar(Vp, mu))
+    return (ZW0, ZW1, ZW2), U + mu * torch.eye(6, device=cuda), Vinv
+
+
+def test_3xtf32_S_against_float64(cuda):
+    """s_precision="high" on the card: schur_S_dense3's 3xTF32 product at
+    300 cameras against S computed in float64 from the same float32
+    inputs. Normwise relative error at most twice the float32 product's
+    plus 2^-21 (what "high" promises), and a tenth of single-pass TF32's at
+    most (the check tells 3xTF32 from TF32); TF32 off after the call."""
+    from psba_tpu_torch.core import schur as sc
+
+    ZW3, Ud, Vinv = _dense_try(cuda, 300, 3000)
+    d = lambda t: tuple(x.double() for x in t)
+    S64, _ = sc.schur_S_dense3(Ud.double(), d(ZW3), Vinv.double())
+    err = {}
+    for prec in ("highest", "high"):
+        S, _ = sc.schur_S_dense3(Ud, ZW3, Vinv, precision=prec)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        err[prec] = float(torch.linalg.norm(S.double() - S64)
+                          / torch.linalg.norm(S64))
+    # schur_S_dense3 pins float32; the single-pass TF32 product by hand
+    ZY3 = tuple(sum(ZW3[m] * Vinv[m, j][None] for m in range(3))
+                for j in range(3))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        off = sum(ZY3[j] @ ZW3[j].T for j in range(3))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    C = Ud.shape[0]
+    S_tf32 = (-off).reshape(C, 6, C, 6)
+    S_tf32.diagonal(dim1=0, dim2=2).add_(Ud.permute(1, 2, 0))
+    err["tf32"] = float(torch.linalg.norm(S_tf32.reshape(6 * C, 6 * C)
+                                          .double() - S64)
+                        / torch.linalg.norm(S64))
+    print(err)
+    assert err["high"] <= 2 * err["highest"] + 2.0 ** -21, err
+    assert err["high"] <= err["tf32"] / 10, err
+
+
+def test_high_solve_on_cuda(cuda):
+    """A float32 "high" default solve on the card: the dense kernels
+    launch, the first LM phase and the switch to TR are "highest"'s, final
+    L2 within 1e-3 of it, TF32 off after it."""
+    from psba_tpu_torch import solve
+    from psba_tpu_torch.ops import linearize_dense as ld
+    from psba_tpu_torch.solvers import SolverConfig
+
+    prob, _pa, _cams, _pts = _problem(cuda, seed=2)
+    runs = {}
+    for prec in ("highest", "high"):
+        before = ld.linearize_dense.launches
+        runs[prec] = solve(prob, SolverConfig.for_dtype(
+            torch.float32, s_precision=prec), dtype=torch.float32,
+            device="cuda")
+        assert ld.linearize_dense.launches > before
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    hi, lo = runs["high"], runs["highest"]
+    assert hi.phases[0] == lo.phases[0]
+    assert hi.final_l2 < hi.initial_l2
+    np.testing.assert_allclose(hi.final_l2, lo.final_l2, rtol=1e-3)
+
+
+def _render(uv, H=120, W=160):
+    """tests/test_frontend.py's render: a 5x5 texture per point, seeded by
+    its index, with a strong centre, on a dark gradient."""
+    img = np.linspace(0, 0.1, W)[None, :] * np.ones((H, 1))
+    for i, (u, v) in enumerate(uv):
+        ui, vi = int(round(u)), int(round(v))
+        if 3 <= ui < W - 3 and 3 <= vi < H - 3:
+            tex = np.random.default_rng(1000 + i).uniform(0.2, 1.0, (5, 5))
+            tex[2, 2] = 1.5
+            img[vi - 2:vi + 3, ui - 2:ui + 3] += tex
+    return img
+
+
+def test_frontend_on_cuda_matches_cpu(cuda):
+    """The two-view pipeline (RANSAC from the same CPU draws) on the card
+    and on the CPU, on test_frontend's scene: the same observations,
+    poses to 1e-4."""
+    from psba_tpu_torch.frontend.pipeline import two_view_problem
+
+    K = [200.0, 80.0, 60.0, 1.0, 0.0]
+    rng = np.random.default_rng(3)
+    X = rng.uniform([-1.2, -0.9, 4], [1.2, 0.9, 8], size=(40, 3))
+    a = 0.08
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    uv = [(Xc[:, :2] / Xc[:, 2:3]) * K[0] + np.array(K[1:3])
+          for Xc in (X, X @ R.T + [-0.6, 0.0, 0.0])]
+    img1, img2 = _render(uv[0]), _render(uv[1])
+    got = two_view_problem(img1, img2, K, n_features=128, device="cuda")
+    ref = two_view_problem(img1, img2, K, n_features=128, device="cpu")
+    np.testing.assert_array_equal(got.obs, ref.obs)
+    np.testing.assert_allclose(got.q0, ref.q0, atol=1e-4)
+    np.testing.assert_allclose(got.cams, ref.cams, atol=1e-4)

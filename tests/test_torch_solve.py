@@ -8,7 +8,7 @@ switch disabled. Tolerances: the first five history rows' ex_l2 to 1e-4
 relative and final_l2 to 1e-3 (float32 sums taken in another order); the
 parameters to 1e-3 of their scale. Plus the port's boundaries: it never
 imports jax or psba_tpu, `solve` needs a device where there is no card, and
-it raises where the next slices begin.
+s_precision="high" runs.
 """
 
 import os
@@ -180,11 +180,15 @@ def test_checkpoint_point_order_mismatch_raises(prob_synth, tmp_path):
 
 @pytest.mark.parametrize("case", ["s_precision_high"])
 def test_next_slices_raise(prob_synth, case):
-    """The port ends where the "high" S precision begins (ROADMAP Queue 1
-    item 18): it raises NotImplementedError instead of stopping quietly."""
-    cfg = _cfg()._replace(s_precision="high")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
-        _solve(prob_synth, cfg)
+    """The slice that used to raise here, the "high" S precision, runs: on
+    the CPU it is the float32 product, so a "high" LM solve gives the
+    "highest" run's bits, and TF32 stays off after it."""
+    res = _solve(prob_synth, _cfg()._replace(s_precision="high"))
+    ref = _solve(prob_synth, _cfg())
+    assert res.flag == ref.flag and res.final_l2 == ref.final_l2
+    np.testing.assert_array_equal(res.history, ref.history)
+    assert res.final_l2 < res.initial_l2
+    assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 def test_solve_without_device_needs_a_card(prob_synth, monkeypatch):
@@ -196,15 +200,20 @@ def test_solve_without_device_needs_a_card(prob_synth, monkeypatch):
 
 
 def test_import_and_solve_without_jax():
-    """Importing the port and running small CPU solves, dense and on the
-    covisibility pairs, never imports jax or any module of psba_tpu."""
+    """Importing the port (its front-end and roofline model too) and
+    running small CPU solves, dense ("high") and on the covisibility pairs,
+    never imports jax or any module of psba_tpu."""
     code = (
         "import sys, torch\n"
         "import psba_tpu_torch\n"
+        "import psba_tpu_torch.frontend, psba_tpu_torch.frontend.pipeline\n"
+        "from psba_tpu_torch.utils import roofline\n"
+        "assert roofline.summarize(4, 40, 100, 1.0)['mfu'] > 0\n"
         "from psba_tpu_torch.io import synthetic_problem\n"
         "p = synthetic_problem(n_cams=4, n_pts=40, seed=1)\n"
         "from psba_tpu_torch.solvers import SolverConfig\n"
-        "cfg = SolverConfig.for_dtype(torch.float32, max_iters=12)\n"
+        "cfg = SolverConfig.for_dtype(torch.float32, max_iters=12, "
+        "s_precision='high')\n"
         "r = psba_tpu_torch.solve(p, cfg, dtype=torch.float32, "
         "device='cpu')\n"
         "assert r.final_l2 < r.initial_l2, r\n"
