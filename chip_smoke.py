@@ -91,17 +91,18 @@ Phases, in order; any failure raises and the script exits nonzero:
      with s_reduce "psum" and "scatter", against phase 3b's solve, every
      dense kernel launched on each rank; (see one_rank_phase and
      two_rank_phase);
-  3h. s_precision="high" (the dense3 S product as 3xTF32): (a) S of the
+  3h. s_precision="high" (run in full float32 on the card, a named
+     deviation from the reference's 3-pass products): (a) S of the
      138-camera problem's first try computed "high", "highest" and in
-     single-pass TF32, each against float64 (normwise relative error; high
-     at most 2 x highest + 2^-21 and a tenth of TF32's), and CUDA-event ms
-     of the S products and the TF32 splits; (b, c) the default solve of the
-     138-camera problem and of ladybug138_real in turns "highest", "high",
-     "high", "highest", counters reset and read around each: final L2 of
-     "high" within 1e-3 of "highest", a normal stop, the dense kernels
-     launched, TF32 off after each; ms per LM / TR iteration and peak
-     device memory; (d) utils/roofline.summarize of a 138-camera LM
-     iteration at both precisions;
+     single-pass TF32, each against float64 (the products' normwise
+     relative error; high at most 2 x highest + 2^-21 and a tenth of
+     TF32's), and CUDA-event ms of S and its products; (b, c) the default
+     solve of the 138-camera problem and of ladybug138_real in turns
+     "highest", "high", "high", "highest", counters reset and read around
+     each: final L2 of "high" within 1e-3 of "highest", a normal stop, the
+     dense kernels launched, TF32 off after each; ms per LM / TR iteration
+     and peak device memory; (d) utils/roofline.summarize of a 138-camera
+     LM iteration at both precisions;
   8. the front-end (psba_tpu_torch.frontend) on the card: 8 views at
      1024 x 768 of 600 planted points, n_features=1024, sequence_problem
      on CUDA against the CPU (corners, matches, poses to 1e-4), each
@@ -1351,7 +1352,7 @@ def main(argv) -> int:
          "ladybug138_real, default: never entered TR")
     lb_runs["lm3"] = lm_natural_vs_clustered(lb, cfg_lm, dev)
 
-    # 3h. s_precision="high": the dense3 S products as 3xTF32
+    # 3h. s_precision="high" (run in full float32: a named deviation)
     t3h = time.perf_counter()
     high = {"accuracy": high_accuracy(prob, cfg, dev)}
     torch.cuda.empty_cache()
@@ -2126,14 +2127,18 @@ def s_error(S, S64) -> float:
 def high_accuracy(prob, cfg, dev) -> dict:
     """Phase 3h (a) and the S timings of (c): the first LM try of the
     138-camera problem's float32 solve (its starting point, mu = tau *
-    max diag), S from that try's ZW3 and V in three ways, "high" (3xTF32),
+    max diag), S from that try's ZW3 and V three ways: "high" (the port
+    runs it in full float32, a named deviation; called here after
+    torch.set_float32_matmul_precision("high"), which is single-pass TF32
+    in PyTorch, to show that the product's float32 pin holds against it),
     "highest" (float32) and single-pass TF32 (the products with TF32 on),
-    each against S computed in float64 from the same float32 inputs:
-    normwise relative errors, with err_high <= 2 err_highest + 2^-21 (what
-    "high" promises) and err_high <= err_tf32 / 10 (the check tells 3xTF32
-    from TF32). Then CUDA-event milliseconds of schur_S_dense3 at both
-    precisions (ZW3 split beforehand, as the solvers split it once per
-    iteration), of its products alone, and of the splits."""
+    each against float64 from the same float32 inputs. The limits are on
+    the products' normwise relative error (S - blockdiag U against its
+    float64 value; the damped diagonal would hide it in S):
+    err_high <= 2 err_highest + 2^-21 (what "high" promises) and
+    err_high <= err_tf32 / 10 (the check tells the products from
+    TF32's). Then CUDA-event milliseconds of schur_S_dense3 per try and of
+    its products alone (the same code under both precisions)."""
     import torch
 
     from psba_tpu_torch.core import schur as sc
@@ -2156,9 +2161,13 @@ def high_accuracy(prob, cfg, dev) -> dict:
     C = Ud.shape[0]
     off64 = sum(ZY64[j] @ ZW3[j].double().T for j in range(3))
     del ZY64
-    S_hi, ZY3 = sc.schur_S_dense3(Ud, ZW3, Vinv, precision="high")
-    need(not torch.backends.cuda.matmul.allow_tf32,
-         "3h: allow_tf32 left on by the 'high' product")
+    torch.set_float32_matmul_precision("high")
+    try:
+        S_hi, ZY3 = sc.schur_S_dense3(Ud, ZW3, Vinv)
+        tf32_after = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    need(not tf32_after, "3h: allow_tf32 on after the 'high' product")
     S_fp, _ = sc.schur_S_dense3(Ud, ZW3, Vinv)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -2170,76 +2179,38 @@ def high_accuracy(prob, cfg, dev) -> dict:
     S_tf = S_tf.reshape(6 * C, 6 * C)
     err = {"high": s_error(S_hi, S64), "highest": s_error(S_fp, S64),
            "tf32": s_error(S_tf, S64)}
-    # the products alone (S - blockdiag U), against their own norm
     blk = torch.block_diag(*Ud.double())
     err_off = {k: float(torch.linalg.norm((blk - S.double()) - off64)
                         / torch.linalg.norm(off64))
                for k, S in (("high", S_hi), ("highest", S_fp),
                             ("tf32", S_tf))}
     print(f"[3h] (a) S of the 138-camera problem's first try (n = {6 * C}, "
-          f"Pp = {ZW0.shape[1]}): normwise relative error against float64 "
-          f"high {err['high']:.3e}, highest {err['highest']:.3e}, "
-          f"single-pass TF32 {err['tf32']:.3e}; of the products alone "
-          f"high {err_off['high']:.3e}, highest {err_off['highest']:.3e}, "
-          f"TF32 {err_off['tf32']:.3e}", flush=True)
-    need(err["high"] <= 2 * err["highest"] + 2.0 ** -21,
-         f"3h: 3xTF32 S error {err['high']:.3e} above 2 x float32's "
-         f"{err['highest']:.3e} + 2^-21")
-    need(err["high"] <= err["tf32"] / 10,
-         f"3h: 3xTF32 S error {err['high']:.3e} not a tenth of TF32's "
-         f"{err['tf32']:.3e}")
+          f"Pp = {ZW0.shape[1]}): the products' normwise relative error "
+          f"against float64 high {err_off['high']:.3e}, highest "
+          f"{err_off['highest']:.3e}, single-pass TF32 "
+          f"{err_off['tf32']:.3e}; of S high {err['high']:.3e}, highest "
+          f"{err['highest']:.3e}, TF32 {err['tf32']:.3e}", flush=True)
+    need(err_off["high"] <= 2 * err_off["highest"] + 2.0 ** -21,
+         f"3h: 'high' products' error {err_off['high']:.3e} above 2 x "
+         f"float32's {err_off['highest']:.3e} + 2^-21")
+    need(err_off["high"] <= err_off["tf32"] / 10,
+         f"3h: 'high' products' error {err_off['high']:.3e} not a tenth of "
+         f"TF32's {err_off['tf32']:.3e}")
     del S64, off64, S_tf, off_tf, blk
-
-    # why the head x head products go in chunks: a product of TF32-exact
-    # operands (ZY_0's and ZW_0's heads) summed over K terms by the tensor
-    # cores, against float64, for growing K, then over all Pp in chunks of
-    # sc.TF32_CHUNK (schur_S_dense3's "high"), and in float32
-    zw_split = sc.split_dense3(ZW3, "high")
-    yh, wh = sc._split_tf32(ZY3[0])[0], zw_split[0][0]
-    acc = {}
-    for K in (sc.TF32_CHUNK, 2048, yh.shape[1]):
-        ref = yh[:, :K].double() @ wh[:, :K].double().T
-        nref = torch.linalg.norm(ref)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            acc[f"tf32_K{K}"] = float(torch.linalg.norm(
-                (yh[:, :K] @ wh[:, :K].T).double() - ref) / nref)
-            if K == yh.shape[1]:
-                acc["tf32_chunked"] = float(torch.linalg.norm(
-                    sc._chunked_tf32(yh, wh).double() - ref) / nref)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        if K == yh.shape[1]:
-            acc["float32"] = float(torch.linalg.norm(
-                (yh @ wh.T).double() - ref) / nref)
-    del ref, yh, wh
-    print(f"[3h] (a) tensor-core sums of TF32-exact heads (ZY_0 x ZW_0), "
-          f"normwise against float64: {acc}", flush=True)
     ms = {
-        "S_try_highest": cuda_ms(lambda: sc.schur_S_dense3(Ud, ZW3, Vinv)),
-        "S_try_high": cuda_ms(lambda: sc.schur_S_dense3(
-            Ud, ZW3, Vinv, precision="high", zw_split=zw_split)),
-        "products_highest": cuda_ms(
+        "S_try": cuda_ms(lambda: sc.schur_S_dense3(Ud, ZW3, Vinv)),
+        "products": cuda_ms(
             lambda: sum(ZY3[j] @ ZW3[j].T for j in range(3))),
-        "products_high_with_zy_split": cuda_ms(
-            lambda: sc._off_3xtf32(ZY3, zw_split)),
-        "split_zy": cuda_ms(lambda: [sc._split_tf32(y) for y in ZY3]),
-        "split_zw": cuda_ms(lambda: sc.split_dense3(ZW3, "high")),
     }
-    ms["products_high"] = (ms["products_high_with_zy_split"]
-                           - ms["split_zy"])
     need(not torch.backends.cuda.matmul.allow_tf32,
          "3h: allow_tf32 left on after the timings")
     flops = 2.0 * (6 * C) ** 2 * 3 * ZW0.shape[1]
-    print(f"[3h] (c) ms per try, CUDA events: schur_S_dense3 highest "
-          f"{ms['S_try_highest']:.4f}, high {ms['S_try_high']:.4f} (ZW3 "
-          f"split once an iteration: {ms['split_zw']:.4f}); the products "
-          f"alone: highest {ms['products_highest']:.4f} ms "
-          f"({flops / ms['products_highest'] / 1e9:.1f} TFLOP/s), high "
-          f"{ms['products_high']:.4f} ms after the ZY3 split's "
-          f"{ms['split_zy']:.4f} ms", flush=True)
-    return dict(err=err, err_products=err_off, tf32_sums=acc, ms=ms,
-                n=6 * C, Pp=ZW0.shape[1], mu=mu)
+    print(f"[3h] (c) ms per try, CUDA events, both precisions: "
+          f"schur_S_dense3 {ms['S_try']:.4f}; its products alone "
+          f"{ms['products']:.4f} ms "
+          f"({flops / ms['products'] / 1e9:.1f} TFLOP/s)", flush=True)
+    return dict(err=err, err_products=err_off, ms=ms, n=6 * C,
+                Pp=ZW0.shape[1], mu=mu)
 
 
 def high_solves(label, prob, cfg, dev, reset, read, ok_flags) -> dict:

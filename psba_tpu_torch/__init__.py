@@ -22,16 +22,17 @@ device and dtype:
              ops/_build.py), each beside its plain PyTorch version
   solvers/   SolverConfig / ProblemArrays / OptState, the LM and TR loops
              on either encoding and either path (the kernels in float32,
-             the XLA form in float64; s_precision="high" runs the dense
-             S product as 3xTF32 on the card), and the hybrid `solve`
-             controller with the float64 polish
+             the XLA form in float64; s_precision="high" accepted and
+             run in full float32), and the hybrid `solve` controller with
+             the float64 polish
   parallel/  the sharded solve over a torch.distributed group
   frontend/  Harris corners, descriptor matching, two-view geometry and the
              pipelines that turn images into a BAProblem
   convert    carry problem and state tensors across from psba_tpu
 
 `solve`, the front-end and the CLI run on the CUDA device unless the
-caller asks for the CPU. This package imports neither jax nor any module of psba_tpu.
+caller asks for the CPU. This package imports neither jax nor any module
+of psba_tpu.
 """
 
 from psba_tpu_torch.problem import BAProblem

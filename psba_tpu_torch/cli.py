@@ -59,9 +59,9 @@ def build_parser():
                         "precision)")
     p.add_argument("--s-precision", choices=["highest", "high"],
                    default="highest",
-                   help="precision of the dense Schur S product: full "
-                        "float32, or 'high' = 3xTF32 on the card (about "
-                        "2^-21 relative; float32 on the CPU)")
+                   help="precision of the dense Schur products; 'high' "
+                        "(the reference's 3-pass products) runs in full "
+                        "float32 here, as 'highest' does")
     p.add_argument("--mesh", type=int, default=1,
                    help="shard the points over N processes, one device "
                         "each (N cards over NCCL; with --device cpu, N CPU "

@@ -38,20 +38,14 @@ how far the float32 path converges (the reference pins Precision.HIGHEST
 for the same reason). The dense XLA family does not pin: TF32 touches
 float32 products only, and in float64 its products are DGEMM and gemv.
 
-s_precision="high" (SolverConfig) maps the reference's Precision.HIGH
-(3-pass bf16, about 2^-21 relative error) onto the card as 3xTF32, for
-the S product of the dense3 family only: each float32 operand is split
-into a TF32-exact head and its float32 tail (_split_tf32), and
-S_off = sum_j (ZYh_j ZWt_j^T + ZYt_j ZWh_j^T) + ZYh_j ZWh_j^T runs as three
-TF32 tensor-core products per j with the small terms summed first and
-tail x tail dropped. The H100's tensor cores sum a product's terms with
-an error that grows with their count (chip_smoke.py phase 3h: a product
-of TF32-exact heads over 19,328 terms is 1.2e-4 off float64, over 128
-terms 9.4e-7, where float32 is 3.9e-7), so the head x head products sum
-128 terms at a time on the tensor cores (_chunked_tf32) and the chunks in
-float32. TF32 is switched on for
-those products alone and off again after them. On the CPU "high" is the
-float32 product, as the reference's is there.
+s_precision="high" (SolverConfig) is the reference's Precision.HIGH (3-pass
+bf16, about 2^-21 relative error on its products). Named deviation: the
+port runs every product under "high" in full float32, as under "highest",
+on the card as on the CPU (where the reference's HIGH is float32 too).
+float32 is at least as accurate as "high" promises, and on the H100 a
+3xTF32 S product built from cuBLAS TF32 GEMMs and torch ops was slower
+than the float32 one, with no gain in accuracy (PERF.md section 6, PR 11;
+ROADMAP Queue 2 for the fused kernel that could beat it).
 """
 
 from __future__ import annotations
@@ -65,88 +59,6 @@ def _pin_fp32_matmul() -> None:
     """Keep float32 products in full float32 (no TF32) on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-# float32 bits: the 13 mantissa bits below TF32's 10 (as a mask of the
-# rest), half of their range (the rounding increment), the magnitude, and
-# the smallest magnitude whose rounding up would carry into the all-ones
-# exponent of inf / NaN
-_TF32_KEEP = -0x2000            # ~0x1FFF as int32
-_TF32_HALF = 0x1000
-_MAG = 0x7FFFFFFF
-_ROUND_LIMIT = 0x7F7FF000
-
-
-def _split_tf32(x: torch.Tensor):
-    """(head, tail) of a float32 tensor: head is x rounded to nearest
-    (ties away from zero) on its bit pattern to the 10 mantissa bits of
-    TF32, so a tensor core reads it exactly whatever its own rounding of
-    float32 inputs; tail = x - head, exact in float32 and at most about
-    2^-12 |x| for a normal x, so the card's rounding of tail costs about
-    2^-23 |x|. For finite x, head + tail is x bit for bit, signed zeros and
-    subnormals included; where rounding up would overflow (|x| within half
-    a TF32 step of the float32 maximum) head is x truncated instead. An
-    infinite or NaN x gives a non-finite head and tail, so the products
-    stay non-finite as in float32. Seven torch ops, two of them in place."""
-    bits = x.view(torch.int32)
-    head = torch.where((bits & _MAG) < _ROUND_LIMIT, bits + _TF32_HALF, bits)
-    head = head.bitwise_and_(_TF32_KEEP).view(torch.float32)
-    # -(head - x) rather than x - head keeps the sign of a zero x in tail,
-    # so that head + tail gives -0.0 back
-    return head, (head - x).neg_()
-
-
-def split_dense3(ZW3, precision: str):
-    """The (head, tail) pairs of the three ZW planes that schur_S_dense3's
-    "high" products read, or None where it runs plain float32 products
-    (precision "highest", or CPU tensors). ZW3 is fixed over an
-    iteration's tries, so the solvers split it once per iteration."""
-    if precision != "high" or not ZW3[0].is_cuda:
-        return None
-    return tuple(_split_tf32(z) for z in ZW3)
-
-
-# terms of a head x head sum that the tensor cores add up before the
-# partial sum goes to float32 (a divisor of the planar width Pp)
-TF32_CHUNK = 128
-
-
-def _chunked_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b.T for a [M, K], b [N, K] (TF32 on): one batched product of
-    the K // TF32_CHUNK column chunks (strided views, no copy), its
-    [K // TF32_CHUNK, M, N] partial sums added in float32, and a plain
-    product for the remainder columns."""
-    (M, K), N = a.shape, b.shape[0]
-    n = K // TF32_CHUNK
-    k = n * TF32_CHUNK
-    out = torch.bmm(a[:, :k].view(M, n, TF32_CHUNK).transpose(0, 1),
-                    b[:, :k].view(N, n, TF32_CHUNK).permute(1, 2, 0))
-    out = out.sum(dim=0)
-    if k < K:
-        out.addmm_(a[:, k:], b[:, k:].T)
-    return out
-
-
-def _off_3xtf32(ZY3, zw_split) -> torch.Tensor:
-    """sum_j ZY_j @ ZW_j^T as 3xTF32: for each j the head x tail and tail x
-    head products first (cuBLAS TF32 GEMMs with beta = 1), then the head x
-    head products in chunks (_chunked_tf32), all accumulated in float32.
-    TF32 is on for these products only; every other float32 product stays
-    in full float32."""
-    ys = [_split_tf32(y) for y in ZY3]
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        (yh, yt), (wh, wt) = ys[0], zw_split[0]
-        off = torch.matmul(yh, wt.T)
-        off.addmm_(yt, wh.T)
-        for (yh, yt), (wh, wt) in zip(ys[1:], zw_split[1:]):
-            off.addmm_(yh, wt.T)
-            off.addmm_(yt, wh.T)
-        for (yh, _yt), (wh, _wt) in zip(ys, zw_split):
-            off += _chunked_tf32(yh, wh)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return off
 
 
 def _block_scale(a, b, c, d, e, f):
@@ -285,15 +197,13 @@ def max_diag_planar(U: torch.Tensor, Vp: torch.Tensor,
     return torch.maximum(du, dv)
 
 
-def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor, psum=None,
-                   precision: str = "highest", zw_split=None):
+def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor, psum=None):
     """S = blockdiag(U) - sum_j ZY_j @ ZW_j^T with ZY_j = sum_m ZW_m *
     Vinv[m, j]. U [C, 6, 6] must already be damped (and mesh-global);
     `psum` (a parallel.ctx.MeshCtx reduction) sums the shard-local
-    off-diagonal part. `precision` "high" on CUDA tensors runs the product
-    as 3xTF32 (module docstring), reading the split of ZW3 from `zw_split`
-    (split_dense3) when given; "highest", and "high" on the CPU, run it in
-    float32. Returns (S [6C, 6C], ZY3), ZY3 reused by
+    off-diagonal part. Full float32 under s_precision "high" too, where
+    the reference runs Precision.HIGH (core/schur.py:345): the named
+    deviation of the module docstring. Returns (S [6C, 6C], ZY3), ZY3 reused by
     reduced_rhs_dense3."""
     _pin_fp32_matmul()
     C = U.shape[0]
@@ -303,14 +213,9 @@ def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor, psum=None,
         + ZW3[2] * Vinv[2, j][None]
         for j in range(3)
     )
-    if zw_split is None:
-        zw_split = split_dense3(ZW3, precision)
-    if zw_split is not None:
-        off = _off_3xtf32(ZY3, zw_split)
-    else:
-        off = torch.matmul(ZY3[0], ZW3[0].T)
-        off += torch.matmul(ZY3[1], ZW3[1].T)
-        off += torch.matmul(ZY3[2], ZW3[2].T)
+    off = torch.matmul(ZY3[0], ZW3[0].T)
+    off += torch.matmul(ZY3[1], ZW3[1].T)
+    off += torch.matmul(ZY3[2], ZW3[2].T)
     if psum is not None:
         off = psum(off)
     S = (-off).reshape(C, 6, C, 6)
@@ -321,13 +226,9 @@ def schur_S_dense3(U: torch.Tensor, ZW3, Vinv: torch.Tensor, psum=None,
 
 def reduced_rhs_dense3(ga: torch.Tensor, gbp: torch.Tensor, ZY3, psum=None):
     """ea = ga - sum_j ZY_j @ gbp[j]; gbp is [3, Pp]. Returns [C, 6]. `ga`
-    must be mesh-global; `psum` sums the shard-local term.
-
-    Named deviation: the reference runs these products at the solver's
-    s_precision (Precision.HIGH for "high", core/schur.py:359); here they
-    stay in full float32 whatever it is. They are matrix-vector products,
-    which tensor cores do not speed up and a TF32 split would double in
-    bytes, and float32 is at least as accurate as "high" promises."""
+    must be mesh-global; `psum` sums the shard-local term. Full float32
+    under s_precision "high" too, where the reference runs Precision.HIGH
+    (core/schur.py:359): the named deviation of the module docstring."""
     _pin_fp32_matmul()
     term = sum(torch.matmul(ZY3[j], gbp[j]) for j in range(3))
     if psum is not None:
@@ -338,9 +239,9 @@ def reduced_rhs_dense3(ga: torch.Tensor, gbp: torch.Tensor, ZY3, psum=None):
 def back_substitute_dense3(gbp: torch.Tensor, ZW3, Vinv: torch.Tensor,
                            dpa: torch.Tensor) -> torch.Tensor:
     """eb_j = gbp[j] - ZW_j^T dpa; dpb_k = sum_j Vinv[j, k] eb_j.
-    Returns dpb [3, Pp]. In full float32 under s_precision "high" too: the
-    named deviation of reduced_rhs_dense3 (the reference's HIGH at
-    core/schur.py:372)."""
+    Returns dpb [3, Pp]. Full float32 under s_precision "high" too, where
+    the reference runs Precision.HIGH (core/schur.py:372): the named
+    deviation of the module docstring."""
     _pin_fp32_matmul()
     v = dpa.reshape(-1)
     eb = [gbp[j] - torch.matmul(v, ZW3[j]) for j in range(3)]

@@ -10,9 +10,9 @@ The kernel path (solvers.types.use_kernels: float32 by default):
     (ops.linearize_dense with U / ga; inv3x3_planar3, schur_S_dense3,
     reduced_rhs_dense3, back_substitute_dense3; ops.gain_dense). The
     residual ex is never formed and stays at its phase-entry value.
-    cfg.s_precision "high" runs its S product as 3xTF32 on the card
-    (core.schur); the pair and XLA-form branches ignore it, as the
-    reference's do.
+    cfg.s_precision "high" runs as "highest", in full float32 (a named
+    deviation, core.schur); the pair and XLA-form branches ignore it, as
+    the reference's do.
   - pairs: the observation stream (ops.linearize_stream with the point
     sums and W; inv3x3, y_blocks, schur_S, reduced_rhs, back_substitute);
     the trial residual and the gain, the factored error_l2_diff(ex,
@@ -87,7 +87,6 @@ from psba_tpu_torch.core.schur import (
     schur_S,
     schur_S_dense,
     schur_S_dense3,
-    split_dense3,
     stack_blocks,
     y_blocks,
 )
@@ -187,8 +186,6 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 kq=pa.kq, tile_mask=pa.tile_mask,
             )
             ZW3 = (ZW0, ZW1, ZW2)
-            # "high" on the card: ZW3's TF32 split, once per iteration
-            zw_split = split_dense3(ZW3, cfg.s_precision)
             gb = gbp[:, :P].T
         U, ga = ctx.psum(U, ga, tag="U_ga")
         if first:
@@ -231,9 +228,7 @@ def lm_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                     U_d = U + mu_t * eye6
                     Vp_d = damp_v_planar(Vp, mu_t)
                 Vinv, vok = inv3x3_planar3(Vp_d)
-                S, ZY3 = schur_S_dense3(U_d, ZW3, Vinv, psum=s_psum,
-                                        precision=cfg.s_precision,
-                                        zw_split=zw_split)
+                S, ZY3 = schur_S_dense3(U_d, ZW3, Vinv, psum=s_psum)
                 ea = reduced_rhs_dense3(ga, gbp, ZY3, psum=ea_psum)
             dpa_flat, ok = spd_solve(S, ea.reshape(-1))
             dpa = dpa_flat.reshape(C, 6)

@@ -8,8 +8,8 @@ float32 TR reach the optimum (TR takes g itself as its Cauchy direction and
 in the model prediction).
 
   - dense3: ZW, V and gb come from the dense grid (ops.linearize_dense),
-    the reduced system from the dense3 Schur family (its S product as
-    3xTF32 on the card under cfg.s_precision "high"), every |J x|^2 from
+    the reduced system from the dense3 Schur family (in full float32
+    under cfg.s_precision "high" too, core.schur), every |J x|^2 from
     ops.residual_dense.jgram_dense and each trial gain from
     ops.residual_dense.gain_dense; ex stays the phase-entry value.
   - pairs: one stream pass gives V, W, gb and the Jacobians A, B as well;
@@ -91,7 +91,6 @@ from psba_tpu_torch.core.schur import (
     schur_S,
     schur_S_dense,
     schur_S_dense3,
-    split_dense3,
     stack_blocks,
     y_blocks,
 )
@@ -282,8 +281,6 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             U = 2.0 * U1
             Vp = 2.0 * Vp1
             ZW3 = (2.0 * ZW0, 2.0 * ZW1, 2.0 * ZW2)
-            # "high" on the card: ZW3's TF32 split, once per iteration
-            zw_split = split_dense3(ZW3, cfg.s_precision)
             g_c = -(2.0 * ga1)
             g_pp3 = -2.0 * gbp1                       # planar [3, Pp]
             # [P, 3] row-major, so every point vector built from it is too
@@ -328,9 +325,7 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
             else:
                 Vinv, vok = inv3x3_planar3(damp_v_planar(Vp, lam_t))
                 S, ZY3 = schur_S_dense3(U + lam_t * eye6, ZW3, Vinv,
-                                        psum=s_psum,
-                                        precision=cfg.s_precision,
-                                        zw_split=zw_split)
+                                        psum=s_psum)
                 ea = reduced_rhs_dense3(g_c, g_pp3, ZY3, psum=ea_psum)
             dpa_flat, ok_t = spd_solve(S, ea.reshape(-1))
             # the one host read of the try; a singular V block on any shard

@@ -63,11 +63,10 @@ class SolverConfig(NamedTuple):
         versions on a CPU float32 run.
     `s_reduce` picks the collective of the S assembly on a mesh
     (parallel.ctx.MeshCtx: "psum" all_reduce, "scatter" reduce_scatter +
-    all_gather). `s_precision` is the precision of the dense3 S product
-    on the card: "highest" full float32, "high" 3xTF32 (about 2^-21
-    relative, the reference's Precision.HIGH; core.schur). The pair
-    encoding, the XLA form and the CPU run "high" as "highest", as the
-    reference's do."""
+    all_gather). `s_precision` "highest" or "high" (the reference's
+    Precision.HIGH on the dense3 products, about 2^-21 relative): the port
+    runs both in full float32 on every path, a named deviation
+    (core.schur)."""
 
     tau: float = C.PSBA_INIT_MU
     stop_thresh: float = C.PSBA_STOP_THRESH

@@ -11,19 +11,18 @@ Counting conventions
   - bytes: each array a stage's kernels or torch ops read or write, once
     per read and once per write; the port's torch ops run one kernel each,
     so an intermediate that one op writes and the next reads counts twice
-    (ZY3, the TF32 splits, the S accumulator), while what one of the
+    (ZY3, the S accumulator), while what one of the
     hand-written kernels keeps on chip counts once. The dense arrays have
     the port's layout: [C, P] observation tables, planar [6C, Pp] ZW planes
     and [3, 3, Pp] / [3, Pp] point arrays, Pp = P padded to the 128-point
     tile (ops.linearize_dense.padded_points).
-  - flops_matmul: the S matrix products (cuBLAS), at the rate of the
-    solver's s_precision: "highest" is float32 on the CUDA cores, "high"
-    3xTF32, three TF32 tensor-core products for each float32 one, so its
-    rate is the TF32 peak over 3.
-  - flops_elem: everything else, one per float32 operation, at the float32
-    rate of the CUDA cores: the kernels' per-cell counts (below, counted
-    from csrc/), the elementwise torch ops and the matrix-vector products
-    (which stay in float32 under "high"; core.schur.reduced_rhs_dense3).
+  - flops_matmul: the S matrix products (cuBLAS), at the float32 rate of
+    the CUDA cores under either s_precision: the port runs "high" in full
+    float32 too (core.schur), so `precision` takes both names and both
+    give the same counts and rates.
+  - flops_elem: everything else, one per float32 operation, at the same
+    rate: the kernels' per-cell counts (below, counted from csrc/), the
+    elementwise torch ops and the matrix-vector products.
 
 The reference counts the same stages on a TPU; its operation counts are
 kept where the work is the same (its P is the planar width here, Pp).
@@ -55,13 +54,6 @@ RESIDUAL_L2_GAIN_FLOPS = RESIDUAL_L2_FLOPS + 9
 # B^T ex (12), the mask of B (6)
 PAIR_STREAM_FLOPS = LINEARIZE_STREAM_FLOPS + 99
 
-# float32-sized reads and writes per element of core.schur._split_tf32's
-# seven torch ops (the magnitude, its compare, the rounding add, the
-# select, the mask in place, head - x, its negation in place; a bool
-# tensor counts a quarter)
-SPLIT_PASSES = 15.5
-
-
 @dataclass(frozen=True)
 class ChipPeaks:
     """Peak rates of one card."""
@@ -69,22 +61,19 @@ class ChipPeaks:
     name: str
     hbm_gbps: float       # device memory bandwidth, GB/s
     f32_tflops: float     # float32 on the CUDA cores (no tensor cores)
-    tf32_tflops: float    # TF32 tensor cores, dense
 
     def matmul_tflops(self, precision: str = "highest") -> float:
-        """The rate of the S products at an s_precision: "highest" runs
-        float32 on the CUDA cores, "high" three TF32 products each."""
-        if precision == "highest":
-            return self.f32_tflops
-        if precision == "high":
-            return self.tf32_tflops / 3.0
-        raise ValueError(f"precision {precision!r}: 'highest' or 'high'")
+        """The rate of the S products at an s_precision: float32 on the
+        CUDA cores for both "highest" and "high" (module docstring)."""
+        if precision not in ("highest", "high"):
+            raise ValueError(f"precision {precision!r}: 'highest' or 'high'")
+        return self.f32_tflops
 
 
 # NVIDIA H100 SXM5 80GB HBM3 (NVIDIA's data sheet, dense rates, at the
-# 700 W power limit): HBM3 3.35 TB/s, float32 67 TFLOP/s, TF32 495 TFLOP/s
+# 700 W power limit): HBM3 3.35 TB/s, float32 67 TFLOP/s
 H100 = ChipPeaks(name="NVIDIA H100 SXM5 80GB HBM3", hbm_gbps=3350.0,
-                 f32_tflops=67.0, tf32_tflops=495.0)
+                 f32_tflops=67.0)
 
 
 @dataclass
@@ -123,16 +112,14 @@ def padded_points(P: int) -> int:
     return -(-P // PTILE) * PTILE
 
 
-def lm_stage_costs(C: int, P: int, O: int, itemsize: int = 4,
-                   precision: str = "highest") -> dict[str, StageCost]:
+def lm_stage_costs(C: int, P: int, O: int,
+                   itemsize: int = 4) -> dict[str, StageCost]:
     """Per-stage costs of one LM iteration of the dense3 float32 path
     (solvers.lm.lm_run's kernel branch on the dense encoding), plus the
     pair path's two stream kernels, which the dense aggregate leaves out.
-    `precision` is the solver's s_precision: "high" adds the TF32 splits
-    of ZW3 (once an iteration) and of ZY3 (each try)."""
+    The same under either s_precision (module docstring)."""
     b = itemsize
     Pp = padded_points(P)
-    high = precision == "high"
     cam_rows = 15 * C            # K | q0 | cams
     costs: dict[str, StageCost] = {}
 
@@ -148,12 +135,6 @@ def lm_stage_costs(C: int, P: int, O: int, itemsize: int = 4,
     # the reference's separate U / ga lane reduction: the port's finishing
     # kernel sums U / ga inside the linearize_dense launch, counted there
     costs["u_ga_reduce"] = StageCost("u_ga_reduce")
-    # "high": core.schur.split_dense3, torch ops over ZW3 (read) into
-    # head and tail (written), once per iteration
-    costs["split_zw"] = StageCost(
-        "split_zw",
-        bytes=(SPLIT_PASSES * 18 * C * Pp * b) if high else 0.0,
-    )
     # --- per try -----------------------------------------------------------
     # U + mu I, Vp + mu I: torch ops, read and write each
     costs["damp_uv"] = StageCost(
@@ -169,20 +150,12 @@ def lm_stage_costs(C: int, P: int, O: int, itemsize: int = 4,
     # core.schur.schur_S_dense3: ZY_j = sum_m ZW_m * Vinv[m, j] (torch
     # FMAs: ZW3 and Vinv in, ZY3 out), the products ZY_j @ ZW_j^T (cuBLAS:
     # ZY3 and ZW3 in, the [6C, 6C] accumulator out, then in and out again
-    # for each further product), S = -off + blockdiag(U) (in, out).
-    # "high" splits ZY3 (in, head and tail out), runs six TF32 products of
-    # a head and a tail, and the three head x head products in chunks of
-    # TF32_CHUNK terms (core.schur._chunked_tf32: the [Pp / 128, 6C, 6C]
-    # partial sums out, then in); the operation count is the reference's
-    gemms = 9 if high else 3
-    zy_split = SPLIT_PASSES * 18 * C * Pp if high else 0
-    operands = (4 if high else 2) * 18 * C * Pp
-    chunks = 3 * 2 * (Pp // PTILE) * 36 * C * C if high else 0
+    # for each further product), S = -off + blockdiag(U) (in, out)
     costs["schur_S_dense"] = StageCost(
         "schur_S_dense",
         bytes=(18 * C * Pp + 9 * Pp + 18 * C * Pp      # ZY3
-               + zy_split + operands + chunks
-               + (2 * gemms - 1) * 36 * C * C           # the accumulator
+               + 2 * 18 * C * Pp                        # the operands
+               + 5 * 36 * C * C                         # the accumulator
                + 2 * 36 * C * C + 36 * C) * b,          # S
         flops_matmul=2.0 * (6 * C) * (6 * C) * (3 * Pp),
         flops_elem=2.0 * 27 * C * Pp,
@@ -239,7 +212,7 @@ def lm_stage_costs(C: int, P: int, O: int, itemsize: int = 4,
 
 # stages that run once per outer iteration vs once per damping try (the
 # dense3 path: one grid linearization, no observation stream)
-OUTER_STAGES = ("linearize_dense", "u_ga_reduce", "split_zw")
+OUTER_STAGES = ("linearize_dense", "u_ga_reduce")
 RETRY_STAGES = (
     "damp_uv", "inv3x3", "schur_S_dense", "reduced_rhs_dense", "spd_solve",
     "back_substitute", "gain_dense", "accept_bookkeeping",
@@ -266,7 +239,7 @@ def lm_iter_roofline(C: int, P: int, O: int, peaks: ChipPeaks = H100,
     """Roofline of one LM iteration = the outer stages + `retries` x the
     try chain (1 = the accepted-step steady state), each stage at its own
     bound, summed."""
-    costs = lm_stage_costs(C, P, O, itemsize=itemsize, precision=precision)
+    costs = lm_stage_costs(C, P, O, itemsize=itemsize)
     stage_ms = {}
     tot_b = tot_m = tot_e = 0.0
     seq = 0

@@ -1,20 +1,20 @@
-"""s_precision="high": the TF32 split, and "high" solves on the CPU
-against the port's own "highest" and the reference's "high".
+"""s_precision="high": solves on the CPU against the port's own "highest"
+and the reference's "high".
 
-On the card "high" runs the dense3 S product as 3xTF32 (core.schur); on
-the CPU it is the float32 product, as the reference's Precision.HIGH is
-on the CPU (XLA computes float32 dots in float32 there). So here:
-  - _split_tf32 gives a TF32-exact head and head + tail == x bit for bit;
+The port runs "high" in full float32 on every path and device, a named
+deviation from the reference's Precision.HIGH (3-pass bf16, about 2^-21)
+on the dense3 products; on the CPU the reference's HIGH is float32 too
+(XLA computes float32 dots in float32 there). So here:
   - "high" gives the "highest" bits on the dense path (LM and TR), the pair
     encoding and the float64 XLA form;
   - a "high" solve meets the reference's "high" solve under the
     tolerances of tests/test_torch_hybrid.py and test_torch_tr.py (LM rows
     1e-4, final L2 1e-3, TR rows from lambda > 0), and two gloo ranks meet
     the reference's sharded "high" solve (1e-3);
-  - the matrix-vector products stay float32 under "high" (a named
-    deviation: the reference runs them at HIGH).
-The 3xTF32 product itself is held to float64 on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 3h).
+  - the dense3 products stay float32 under "high" (the named deviation),
+    also after torch.set_float32_matmul_precision("high").
+The card holds the products to float64 (tests/test_torch_cuda.py,
+chip_smoke.py phase 3h).
 """
 
 from pathlib import Path
@@ -43,66 +43,6 @@ def _problems(name):
         return (jio.synthetic_problem(n_cams=6, n_pts=150, seed=3),
                 tio.synthetic_problem(n_cams=6, n_pts=150, seed=3))
     return jio.bal_to_problem(MINI_BAL), tio.bal_to_problem(MINI_BAL)
-
-
-# ------------------------------------------------------------ _split_tf32
-
-def _bits(n, seed, lo, hi):
-    """float32 values whose bit patterns are uniform in [lo, hi), with a
-    random sign."""
-    rng = np.random.default_rng(seed)
-    b = rng.integers(lo, hi, n, dtype=np.int64).astype(np.uint32)
-    b |= (rng.integers(0, 2, n).astype(np.uint32) << 31)
-    return b.view(np.float32)
-
-
-CASES = {
-    "any_finite": _bits(100_000, 0, 0, 0x7F800000),
-    "subnormal": _bits(20_000, 1, 1, 0x00800000),
-    "zeros": np.array([0.0, -0.0], np.float32),
-    "large_exponents": np.concatenate([
-        _bits(20_000, 2, 0x7E000000, 0x7F800000),
-        np.array([0x7F7FEFFF, 0x7F7FF000, 0x7F7FFFFF, 0xFF7FFFFF,
-                  0x7F7FE000, 0x00001000, 0x00001FFF, 0x80001000],
-                 np.uint32).view(np.float32)]),
-    "ties_and_carries": np.array(
-        [0x3F800FFF, 0x3F801000, 0x3F803000, 0x3FFFF000, 0x3FFFEFFF,
-         0xBF801000, 0x007FF000, 0x807FF000], np.uint32).view(np.float32),
-}
-
-
-@pytest.mark.parametrize("case", list(CASES))
-def test_split_tf32_head_exact_and_sum_bit_exact(case):
-    x = CASES[case]
-    head, tail = tsc._split_tf32(torch.from_numpy(x.copy()))
-    hb = head.numpy().view(np.uint32)
-    assert np.all(hb & 0x1FFF == 0), "head is not TF32-exact"
-    assert np.all(np.isfinite(head.numpy()))
-    np.testing.assert_array_equal((head + tail).numpy().view(np.uint32),
-                                  x.view(np.uint32))
-    # round to nearest: |tail| at most half a TF32 step at |x| (2^-136
-    # among the subnormals; a whole step where rounding up would overflow
-    # and x is truncated instead)
-    e = np.frexp(np.abs(x.astype(np.float64)))[1]
-    step = np.ldexp(1.0, np.maximum(e - 11, -136))
-    top = np.abs(x) >= np.uint32(0x7F7FF000).view(np.float32)
-    lim = np.where(top, step, 0.5 * step)
-    assert np.all(np.abs(tail.numpy().astype(np.float64)) <= lim)
-
-
-def test_split_tf32_keeps_nonfinite_nonfinite():
-    x = np.array([0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001,
-                  0xFFC00001], np.uint32).view(np.float32)
-    head, tail = tsc._split_tf32(torch.from_numpy(x.copy()))
-    assert not np.isfinite((head + tail).numpy()).any()
-    assert np.all(np.isinf(head.numpy()[:2]))
-    assert np.all(np.sign(head.numpy()[:2]) == [1.0, -1.0])
-
-
-def test_split_dense3_only_on_the_card_under_high():
-    z = tuple(torch.ones(12, 128) for _ in range(3))
-    assert tsc.split_dense3(z, "high") is None
-    assert tsc.split_dense3(z, "highest") is None
 
 
 # ------------------------------------------------- "high" on the CPU: bits
@@ -222,23 +162,24 @@ def test_sharded_high_matches_reference_high():
 
 # ------------------------------------------- the named float32 deviation
 
-def test_matvecs_stay_float32_under_high():
-    """Named deviation: the reference runs the reduced rhs and the
-    back-substitution at the solver's precision (HIGH for "high",
-    psba_tpu/core/schur.py:359, :372); the port keeps both in full float32
-    whatever s_precision is. They take no precision argument, and their
-    error against float64 stays within what "high" promises (2^-21 of the
-    scale)."""
+def test_dense3_products_stay_float32_under_high():
+    """Named deviation: the reference runs the S product, the reduced rhs
+    and the back-substitution at the solver's precision (HIGH for "high",
+    psba_tpu/core/schur.py:345, :359, :372); the port keeps all three in
+    full float32 whatever s_precision is. They take no precision argument,
+    their docstrings name the deviation, and their error against float64
+    stays within what "high" promises (2^-21 of the scale)."""
     import inspect
 
     from psba_tpu_torch.io import synthetic_problem
     from psba_tpu_torch.ops import linearize_dense as ld
     from psba_tpu_torch.solvers import ProblemArrays
 
-    for fn in (tsc.reduced_rhs_dense3, tsc.back_substitute_dense3):
+    assert "deviation" in tsc.__doc__
+    for fn in (tsc.schur_S_dense3, tsc.reduced_rhs_dense3,
+               tsc.back_substitute_dense3):
         assert "precision" not in inspect.signature(fn).parameters
         assert "deviation" in fn.__doc__
-    assert "precision" in inspect.signature(tsc.schur_S_dense3).parameters
     prob = synthetic_problem(n_cams=8, n_pts=300, seed=2)
     pa = ProblemArrays.from_problem(prob, dtype=torch.float32, device="cpu")
     cams = torch.as_tensor(prob.cams, dtype=torch.float32) + 1e-3
@@ -247,17 +188,42 @@ def test_matvecs_stay_float32_under_high():
         pa.K, pa.q0, cams, pts, pa.obs_du, pa.obs_dv, pa.valid_d,
         want_u=True)
     ZW3 = (ZW0, ZW1, ZW2)
+    Ud = U + torch.eye(6)
     Vinv, _ok = tsc.inv3x3_planar3(tsc.damp_v_planar(Vp, 1.0))
-    _S, ZY3 = tsc.schur_S_dense3(U + torch.eye(6), ZW3, Vinv,
-                                 precision="high")
+    S, ZY3 = tsc.schur_S_dense3(Ud, ZW3, Vinv)
     dpa = torch.randn(prob.n_cams, 6, generator=torch.Generator()
                       .manual_seed(0))
     ea = tsc.reduced_rhs_dense3(ga, gbp, ZY3)
     dpb = tsc.back_substitute_dense3(gbp, ZW3, Vinv, dpa)
     d = lambda t: tuple(x.double() for x in t)
+    S64, ZY64 = tsc.schur_S_dense3(Ud.double(), d(ZW3), Vinv.double())
     ea64 = tsc.reduced_rhs_dense3(ga.double(), gbp.double(), d(ZY3))
     dpb64 = tsc.back_substitute_dense3(gbp.double(), d(ZW3), Vinv.double(),
                                        dpa.double())
-    for got, want in ((ea, ea64), (dpb, dpb64)):
+    blk = torch.block_diag(*Ud.double())
+    for got, want in ((blk - S.double(), blk - S64), (ea, ea64),
+                      (dpb, dpb64)):
         err = float((got.double() - want).abs().max() / want.abs().max())
         assert err <= 2.0 ** -21, err
+
+
+def test_high_keeps_the_float32_pin():
+    """PyTorch's own "high" (torch.set_float32_matmul_precision) is
+    single-pass TF32, not the reference's 3-pass HIGH: a "high" dense solve
+    run after it turns TF32 off, for cuBLAS and cuDNN, and gives the bits
+    of a "highest" solve."""
+    _, tp = _problems("synth")
+    ref = solve(tp, _f32_cfg("highest"), dtype=torch.float32, device="cpu")
+    prec, cudnn = (torch.get_float32_matmul_precision(),
+                   torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        got = solve(tp, _f32_cfg("high"), dtype=torch.float32, device="cpu")
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cudnn.allow_tf32 = cudnn
+    _assert_same_bits(got, ref)
