@@ -109,6 +109,17 @@ Phases, in order; any failure raises and the script exits nonzero:
      stage's ms, then the problem solved on the card in float32 (counters
      reset and read around it; the LM path's kernels launched, RMS under
      1 px);
+  9. the direct entry, as a bench drives lm_run: ProblemArrays.
+     from_problem(p, dtype=float32) with no device -> OptState.init ->
+     resolve_damping -> lm_run(iter_cap=3), counters reset and read
+     around it, on the 138-camera problem (dense; linearize_dense,
+     spd_solve, gain_dense launched) and on final961_pairs (pairs;
+     linearize_stream, residual_l2): every tensor on cuda, the final L2
+     the bits of the same run with device="cuda", ms per LM iteration;
+     then parallel.shard.make_sharded_lm_repeat on one NCCL rank
+     (lm_repeat_rank) on ladybug138_real, iter_cap 3 x 3 repeats:
+     total_itno 9, acc_l2 the bits of 3 x the single run's L2, ms per
+     repeat (see direct_entry_phase; the "direct" key);
   5. a JSON line of the kernels and the paths, then, last, the device JSON
      line.
 It imports nothing of JAX.
@@ -1657,7 +1668,6 @@ def main(argv) -> int:
            "two_gloo_ranks": two_rank_phase(prob, res, cfg, dev,
                                             dense_path)}
     par["seconds"] = time.perf_counter() - t7
-    del big
     seen = {k: 0 for k in kern}
     for v in par["one_nccl_rank"].values():
         for k in kern:
@@ -1676,6 +1686,15 @@ def main(argv) -> int:
     fe = frontend_phase(dev, reset, read, lm_path)
     fe["seconds"] = time.perf_counter() - t8
     print(f"[8] {fe['seconds']:.1f} s", flush=True)
+
+    # ---- phase 9: the direct entry (from_problem with no device ->
+    # OptState.init -> resolve_damping -> lm_run) and the sharded repeats
+    # runner
+    t9 = time.perf_counter()
+    direct = direct_entry_phase(prob, big, lb, dev, reset, read, lm_path)
+    direct["seconds"] = time.perf_counter() - t9
+    del big
+    print(f"[9] {direct['seconds']:.1f} s", flush=True)
 
     # ---- phase 5: output
     src = {
@@ -1709,7 +1728,10 @@ def main(argv) -> int:
                             for label, runs in high.items()
                             if label in ("synthetic138_dense",
                                          "ladybug138_real")},
-             launches_frontend=fe["launches"][k], **rows[k])
+             launches_frontend=fe["launches"][k],
+             launches_direct={label: v["launches"][k]
+                              for label, v in direct.items()
+                              if isinstance(v, dict)}, **rows[k])
         for k in src
     ]
     kernels[src_names.index("linearize_stream")]["launches_point_pass"] = {
@@ -1764,6 +1786,7 @@ def main(argv) -> int:
         "parallel": par,
         "high": high,
         "frontend": fe,
+        "direct": direct,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2114,6 +2137,148 @@ def two_rank_phase(prob, res, cfg, dev, dense_path) -> dict:
                      f"7b {s_reduce}: rank {rank} launched no {k}")
         need(r.collectives["S"]["calls"] > 0, f"7b {s_reduce}: no S "
              "collective")
+    return out
+
+
+def all_tensors(obj) -> list:
+    """Every tensor of a ProblemArrays (its stream tables included) or an
+    OptState."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in all_tensors(getattr(obj, f.name))]
+    return []
+
+
+def direct_entry_phase(prob, big, lb, dev, reset, read, lm_path) -> dict:
+    """Phase 9, the direct entry as a bench drives it: ProblemArrays.
+    from_problem(p, dtype=float32) with no device (and schur "auto") ->
+    OptState.init -> resolve_damping -> lm_run(iter_cap=3) with no early
+    stop and no switch to TR, counters reset just before OptState.init and
+    read just after lm_run. (a) The 138-camera problem (dense) and (b)
+    final961_pairs (pairs): every tensor on cuda, the path's kernels
+    launched, the final L2 the bits of the same run built with
+    device="cuda", ms per LM iteration of both. (c) parallel.distributed.
+    lm_repeat_rank (make_sharded_lm_repeat) on one NCCL rank in this
+    process on ladybug138_real, iter_cap 3, with 3 repeats and with 1:
+    total_itno 9 and acc_l2 the bits of 0 + l2 + l2 + l2 in float32, l2
+    the single run's; ms per repeat."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from psba_tpu_torch.parallel.distributed import (
+        init_distributed,
+        lm_repeat_rank,
+    )
+    from psba_tpu_torch.solvers import (
+        OptState,
+        ProblemArrays,
+        SolverConfig,
+        resolve_damping,
+    )
+    from psba_tpu_torch.solvers.lm import lm_run
+
+    f32 = torch.float32
+    base = SolverConfig.for_dtype(f32, stop_thresh=1e-30,
+                                  lm_switch_count=10_000)
+    out = {}
+    for label, p, pairs, path in (
+            ("synthetic138_dense", prob, False, lm_path),
+            ("final961_pairs", big, True, ("linearize_stream",
+                                           "residual_l2"))):
+        runs = {}
+        for where in ("default", "cuda"):
+            kw = {} if where == "default" else {"device": "cuda"}
+            pa = ProblemArrays.from_problem(p, dtype=f32, **kw)
+            cams = torch.as_tensor(p.cams, dtype=f32, device=pa.K.device)
+            pts = torch.as_tensor(p.pts, dtype=f32, device=pa.K.device)
+            torch.cuda.synchronize()
+            reset()
+            state0 = OptState.init(pa, cams, pts)
+            cfg = resolve_damping(base, pa, cams, pts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = lm_run(pa, state0, cfg, iter_cap=3)
+            l2 = float(st.ex_l2)
+            ms = 1e3 * (time.perf_counter() - t0) / max(st.itno, 1)
+            got = read()
+            devices = sorted({t.device.type for t in all_tensors(pa)
+                              + all_tensors(st)})
+            runs[where] = dict(pairs=pa.pairs, devices=devices,
+                               damping=cfg.damping, itno=st.itno, l2=l2,
+                               ms=ms, launches=got)
+            del pa, state0, st
+            torch.cuda.empty_cache()
+        r, rc = runs["default"], runs["cuda"]
+        same = r["l2"] == rc["l2"]
+        out[label] = dict(
+            encoding="pairs" if r["pairs"] else "dense",
+            tensor_devices=r["devices"], damping=r["damping"],
+            iterations=r["itno"], final_l2=r["l2"],
+            same_bits_as_device_cuda=same,
+            lm_iter_ms={"default": r["ms"], "device_cuda": rc["ms"]},
+            launches=r["launches"])
+        print(f"[9] {label}: from_problem with no device -> "
+              f"{'pairs' if r['pairs'] else 'dense'}, tensors on "
+              f"{r['devices']}; damping {r['damping']}; lm_run "
+              f"iter_cap=3: {r['itno']} iterations, final L2 {r['l2']!r} "
+              f"(device='cuda': {rc['l2']!r}, same bits {same})\n"
+              f"[9]   ms per LM iteration {r['ms']:.3f} (device='cuda' "
+              f"{rc['ms']:.3f})\n[9]   launches {r['launches']}",
+              flush=True)
+        need(r["devices"] == ["cuda"], f"9 {label}: tensors on "
+             f"{r['devices']} with no device named")
+        need(r["pairs"] == pairs, f"9 {label}: schur='auto' took the "
+             "other encoding")
+        need(r["itno"] == 3 and np.isfinite(r["l2"]),
+             f"9 {label}: {r['itno']} iterations, final L2 {r['l2']}")
+        need(same, f"9 {label}: final L2 differs from device='cuda'")
+        for k in path:
+            need(r["launches"][k] > 0, f"9 {label}: kernel {k} not "
+                 "launched")
+
+    cfg = SolverConfig.for_dtype(f32, lm_switch_count=10_000)
+    kw = dict(prob=lb, cfg=cfg, iter_cap=3, dtype=f32, schur="dense")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/store", 1, 0, device=dev,
+                         backend="nccl")
+        try:
+            lm_repeat_rank(dev, repeats=1, **kw)     # warm-up
+            one = lm_repeat_rank(dev, repeats=1, **kw)
+            reset()
+            rep = lm_repeat_rank(dev, repeats=3, **kw)
+            got = read()
+        finally:
+            dist.destroy_process_group()
+    want = torch.zeros((), dtype=f32, device=dev)
+    l2 = torch.tensor(one["acc_l2"], dtype=f32, device=dev)
+    for _ in range(3):
+        want = want + l2
+    same = rep["acc_l2"] == float(want)
+    ms_rep = 1e3 * rep["seconds"] / 3
+    out["sharded_repeat"] = dict(
+        problem="ladybug138_real", iter_cap=3, repeats=3,
+        total_itno=rep["total_itno"], acc_l2=rep["acc_l2"],
+        single_l2=one["acc_l2"], same_bits_as_3x_single=same,
+        ms_per_repeat=ms_rep, ms_single=1e3 * one["seconds"],
+        launches=got)
+    print(f"[9] sharded repeats runner, one NCCL rank, ladybug138_real, "
+          f"iter_cap 3 x 3: total_itno {rep['total_itno']}, acc_l2 "
+          f"{rep['acc_l2']!r} vs 3 x {one['acc_l2']!r} = {float(want)!r} "
+          f"(same bits {same})\n[9]   ms per repeat {ms_rep:.3f} (a single "
+          f"run {1e3 * one['seconds']:.3f})\n[9]   launches {got}",
+          flush=True)
+    need(rep["total_itno"] == 9 and one["total_itno"] == 3,
+         f"9 repeats: total_itno {rep['total_itno']}")
+    need(same, "9 repeats: acc_l2 is not 3 x the single run's L2")
+    for k in lm_path:
+        need(got[k] > 0, f"9 repeats: kernel {k} not launched")
     return out
 
 

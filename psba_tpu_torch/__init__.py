@@ -10,9 +10,9 @@ device and dtype:
              or numpy
   datasets   the registry of the reference project's datasets
   cli        `python -m psba_tpu_torch.cli`, float64 by default
-  utils/     phase timing, checkpointing, NaN checks and block dumps, and
-             the roofline model of the dense LM iteration on the H100
-             (roofline.py)
+  utils/     phase timing, checkpointing, NaN checks and block dumps, the
+             device resolver (device.py) and the roofline model of the
+             dense LM iteration on the H100 (roofline.py)
   models/    quaternion and pinhole camera models
   core/      residual, analytic Jacobian and jmultiply, the XLA-form block
              assembly, the Schur reduction in both encodings (dense3 on the
@@ -25,14 +25,16 @@ device and dtype:
              the XLA form in float64; s_precision="high" accepted and
              run in full float32), and the hybrid `solve` controller with
              the float64 polish
-  parallel/  the sharded solve over a torch.distributed group
+  parallel/  the sharded solve and the sharded repeats runner over a
+             torch.distributed group
   frontend/  Harris corners, descriptor matching, two-view geometry and the
              pipelines that turn images into a BAProblem
   convert    carry problem and state tensors across from psba_tpu
 
-`solve`, the front-end and the CLI run on the CUDA device unless the
-caller asks for the CPU. This package imports neither jax nor any module
-of psba_tpu.
+`solve`, the sharded solve, the front-end, the CLI and the direct entry
+(solvers.types.ProblemArrays.from_problem, convert) run on the CUDA
+device unless the caller asks for the CPU. This package imports neither
+jax nor any module of psba_tpu.
 """
 
 from psba_tpu_torch.problem import BAProblem

@@ -16,6 +16,7 @@ import torch
 from psba_tpu_torch import constants as CC
 from psba_tpu_torch.ops.linearize_stream import build_stream_tables
 from psba_tpu_torch.solvers.types import OptState, ProblemArrays, torch_dtype
+from psba_tpu_torch.utils.device import resolve_device
 
 _FIELDS = ("K", "q0", "obs", "cam_idx", "pt_idx")
 _DENSE = ("obs_du", "obs_dv", "valid_d")
@@ -31,7 +32,7 @@ def _present(a) -> bool:
     return a is not None and np.asarray(a).dtype != object
 
 
-def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
+def from_reference(pa_np, cams_np, pts_np, device=None, dtype=None):
     """Port tensors from the reference's ProblemArrays fields and camera /
     point arrays given as numpy (a mapping or an object with the fields
     K, q0, obs, cam_idx, pt_idx and one encoding: the dense tables obs_du,
@@ -39,9 +40,11 @@ def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
     reference builds only the one it solves with). A dense blk_idx comes
     along where present (the port's XLA form needs it).
 
-    Returns (ProblemArrays, cams [C, 6], pts [P, 3]) on `device`, floating
-    fields in `dtype` (default: the dtype of cams_np), with the stream
-    tables of the kernel path."""
+    Returns (ProblemArrays, cams [C, 6], pts [P, 3]) on `device` (default:
+    the CUDA device, an error without one), floating fields in `dtype`
+    (default: the dtype of cams_np), with the stream tables of the kernel
+    path."""
+    device = resolve_device(device, "convert.from_reference")
     get = _getter(pa_np)
     dt = torch_dtype(np.asarray(cams_np).dtype if dtype is None else dtype)
     enc = [k for k in _DENSE + _PAIRS if _present(get(k))]
@@ -66,13 +69,15 @@ def from_reference(pa_np, cams_np, pts_np, device="cpu", dtype=None):
     return ProblemArrays(**out), as_t(cams_np), pts
 
 
-def state_from_reference(st_np, device="cpu", dtype=None) -> OptState:
+def state_from_reference(st_np, device=None, dtype=None) -> OptState:
     """Port OptState from the reference's OptState fields as numpy (a
     mapping or an object with cams, pts, ex, ex_l2, itno, flag and the
     optional history and aux, absent as None or as a numpy object array
     of None). The phase-scalar vector `aux` (LM or TR)
     and the history rows carry over, so a phase can start in both packages
-    from one state."""
+    from one state. On `device`, by default the CUDA device (an error
+    without one)."""
+    device = resolve_device(device, "convert.state_from_reference")
     get = _getter(st_np)
     dt = torch_dtype(np.asarray(get("cams")).dtype if dtype is None
                      else dtype)

@@ -20,29 +20,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-def resolve_device(device) -> torch.device:
-    """The device of a front-end call: CUDA unless the caller names
-    another. Without a card, no device is an error, not a quiet fall-back
-    to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "psba_tpu_torch.frontend runs on the CUDA device by default and "
-            "torch sees none; pass device=\"cpu\" to run it on the CPU"
-        )
-    return torch.device("cuda")
+from psba_tpu_torch.utils.device import resolve_device
 
 
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     """A tensor input stays on its device (cast to `dtype` if given); an
-    array goes to resolve_device(device)."""
+    array goes to `device`, CUDA unless the caller names another."""
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     elif device is None:
         return x if dtype is None else x.to(dtype)
-    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(
+        device, "psba_tpu_torch.frontend", "it"))
 
 
 @contextlib.contextmanager

@@ -20,11 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from psba_tpu_torch.frontend.features import (
-    as_tensor,
-    detect_and_describe,
-    resolve_device,
-)
+from psba_tpu_torch.frontend.features import as_tensor, detect_and_describe
 from psba_tpu_torch.frontend.matching import match_descriptors
 from psba_tpu_torch.frontend.twoview import (
     decompose_essential,
@@ -34,6 +30,7 @@ from psba_tpu_torch.frontend.twoview import (
 )
 from psba_tpu_torch.io.synthetic import _mat_to_quat
 from psba_tpu_torch.problem import BAProblem
+from psba_tpu_torch.utils.device import resolve_device
 
 
 def _estimate_E(x1n, x2n, valid, ransac_iters, fu, seed=0):
@@ -56,7 +53,7 @@ def _device(img, device) -> torch.device:
     CUDA (resolve_device)."""
     if device is None and isinstance(img, torch.Tensor):
         return img.device
-    return resolve_device(device)
+    return resolve_device(device, "psba_tpu_torch.frontend", "it")
 
 
 def _normalizer(K):

@@ -5,6 +5,7 @@ from psba_tpu_torch.models.quaternion import (
     compose_local,
     local_scalar,
     quat_multiply,
+    quat_normalize_vec,
     quat_rotate,
     quat_to_matrix,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "compose_local",
     "local_scalar",
     "quat_multiply",
+    "quat_normalize_vec",
     "quat_rotate",
     "quat_to_matrix",
     "project",

@@ -69,3 +69,17 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def quat_normalize_vec(q: torch.Tensor):
+    """Normalize full quaternions [..., 4], the scalar part forced
+    non-negative (q and -q encode the same rotation). Returns (the vector
+    part [..., 3], the normalized quaternions [..., 4]).
+
+    The reference's quat2vec input filter (PSBA/misc.cpp:21-49): the
+    vector part is the optimized local rotation's initial state before it
+    is zeroed, and qn the sign convention of the stored q0."""
+    mag = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    sg = torch.where(q[..., 0:1] >= 0.0, 1.0, -1.0).to(q.dtype)
+    qn = q * (sg / mag)
+    return qn[..., 1:4], qn

@@ -116,10 +116,10 @@ def build_point_runs(pt_idx, n_pts: int):
 
 
 def build_stream_tables(cam_idx, pt_idx, n_cams: int, n_pts: int,
-                        device="cpu") -> StreamTables:
-    """Host-side tables of both walks, built once per problem: each camera's
-    observations (in their stream order) cut into runs of at most CHUNK, and
-    the point runs of build_point_runs."""
+                        device) -> StreamTables:
+    """Tables of both walks, built once per problem on the host and moved
+    to `device`: each camera's observations (in their stream order) cut
+    into runs of at most CHUNK, and the point runs of build_point_runs."""
     cam = np.asarray(cam_idx, np.int64)
     pt = np.asarray(pt_idx, np.int64)
     perm = np.argsort(cam, kind="stable")

@@ -12,9 +12,10 @@ counterpart of psba_tpu.parallel.distributed).
     collective. Each returns its own points.
   - `run_ranks` starts one process per rank on this host (spawn; a
     FileStore in a temporary directory, so no network), runs a function in
-    each (`solve_rank`: solve_distributed) and collects the results; a rank
-    that fails, or a run past its timeout, stops them all and raises.
-    parallel.shard.solve_sharded is built on it.
+    each (`solve_rank`: solve_distributed; `lm_repeat_rank`: the sharded
+    repeats runner, parallel.shard.make_sharded_lm_repeat) and collects
+    the results; a rank that fails, or a run past its timeout, stops them
+    all and raises. parallel.shard.solve_sharded is built on it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from psba_tpu_torch.parallel.shard import (
 )
 from psba_tpu_torch.problem import BAProblem
 from psba_tpu_torch.solvers.types import OptState, SolverConfig, torch_dtype
+from psba_tpu_torch.utils.device import resolve_device
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -104,6 +106,32 @@ def slice_local(sp: ShardedProblem, rank: int) -> ShardedProblem:
     )
 
 
+def _rank_start(prob: BAProblem, cfg: SolverConfig | None, dtype, schur,
+                device, group, who: str, timed: bool = False):
+    """This rank's part of a sharded run of `prob` over `group` (default:
+    the default process group if one runs, else one shard and no mesh):
+    (cfg with its damping resolved on the whole problem, the shard's
+    ProblemArrays on `device`, OptState.init of the shard with the
+    group's L2, the MeshCtx, the one-shard ShardedProblem)."""
+    import torch.distributed as dist
+
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    device = resolve_device(device, who)
+    dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)
+    cfg = cfg or SolverConfig.for_dtype(dt)
+    cfg = resolve_damping_host(cfg, prob, dt, device)
+    local = slice_local(shard_problem(prob, world, schur=schur), rank)
+    pa = local_arrays(local, dt, device, backend=cfg.backend)
+    ctx = NO_MESH if group is None else MeshCtx(group, timed=timed)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+    state = OptState.init(pa, as_t(prob.cams), as_t(local.pts),
+                          clamp=cfg.clamp_quat, ctx=ctx)
+    return cfg, pa, state, ctx, local
+
+
 def solve_distributed(prob: BAProblem, cfg: SolverConfig | None = None,
                       dtype=None, start="lm", schur="auto", device=None,
                       group=None, time_collectives: bool = False):
@@ -117,32 +145,17 @@ def solve_distributed(prob: BAProblem, cfg: SolverConfig | None = None,
     of shard_problem's pt_starts, in order). `collectives` holds
     the group's collectives by tag (MeshCtx.summary); with
     `time_collectives` each is timed between two device synchronizations."""
-    import torch.distributed as dist
-
-    from psba_tpu_torch.solvers.hybrid import SolveResult, _device
+    from psba_tpu_torch.solvers.hybrid import SolveResult
     from psba_tpu_torch.solvers.lm import lm_run
     from psba_tpu_torch.solvers.tr import tr_run
     from psba_tpu_torch.utils.timing import PhaseTimers
 
-    if group is None and dist.is_available() and dist.is_initialized():
-        group = dist.group.WORLD
-    world = 1 if group is None else dist.get_world_size(group)
-    rank = 0 if group is None else dist.get_rank(group)
-    device = _device(device)
     if start not in ("lm", "tr"):
         raise ValueError(f"start={start!r}: 'lm' or 'tr'")
-    dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)
-    cfg = cfg or SolverConfig.for_dtype(dt)
-    cfg = resolve_damping_host(cfg, prob, dt, device)
-    sp = shard_problem(prob, world, schur=schur)
-    local = slice_local(sp, rank)
-    pa = local_arrays(local, dt, device, backend=cfg.backend)
-    ctx = NO_MESH if group is None else MeshCtx(group,
-                                                timed=time_collectives)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-
-    state = OptState.init(pa, as_t(prob.cams), as_t(local.pts),
-                          clamp=cfg.clamp_quat, ctx=ctx)
+    cfg, pa, state, ctx, local = _rank_start(
+        prob, cfg, dtype, schur, device, group, "solve_distributed",
+        timed=time_collectives)
+    device = state.cams.device
     initial_l2 = float(state.ex_l2)
     timers = PhaseTimers()
     t0 = time.perf_counter()
@@ -202,6 +215,34 @@ def solve_rank(device, **kw) -> dict:
     res = solve_distributed(device=device, **kw)
     after = kernel_launches()
     return dict(result=res,
+                launches={k: after[k] - before[k] for k in after})
+
+
+def lm_repeat_rank(device, prob: BAProblem, iter_cap: int, repeats: int,
+                   cfg: SolverConfig | None = None, dtype=None,
+                   schur="auto") -> dict:
+    """parallel.shard.make_sharded_lm_repeat on this rank's shard of
+    `prob` over the default group, built as solve_distributed builds it:
+    {"acc_l2": the summed final L2 (float), "total_itno": the summed
+    iterations, "seconds": the runner's wall time between two device
+    synchronizations, "launches": the kernels it launched}."""
+    from psba_tpu_torch.parallel.shard import make_sharded_lm_repeat
+
+    cfg, pa, state0, ctx, _ = _rank_start(prob, cfg, dtype, schur, device,
+                                          None, "lm_repeat_rank")
+    run = make_sharded_lm_repeat(cfg, ctx)
+    dev = state0.cams.device
+    sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+            else lambda: None)
+    before = kernel_launches()
+    sync()
+    t0 = time.perf_counter()
+    acc, itno = run(pa, state0, iter_cap, repeats)
+    acc_l2 = float(acc)
+    sync()
+    secs = time.perf_counter() - t0
+    after = kernel_launches()
+    return dict(acc_l2=acc_l2, total_itno=itno, seconds=secs,
                 launches={k: after[k] - before[k] for k in after})
 
 

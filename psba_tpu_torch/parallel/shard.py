@@ -17,6 +17,8 @@ Partitioning, as in the reference:
 (parallel.distributed.run_ranks): NCCL with rank r on cuda:r, or gloo on
 the CPU. Each process runs parallel.distributed.solve_distributed on its
 shard, and the points come back in the caller's order.
+`make_sharded_lm_repeat` is the timing runner of a rank: identical
+fixed-length lm_run trajectories, their L2 and iterations summed.
 """
 
 from __future__ import annotations
@@ -26,13 +28,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from psba_tpu_torch.parallel.ctx import MeshCtx
 from psba_tpu_torch.problem import BAProblem, build_covis_pairs
+from psba_tpu_torch.solvers.lm import lm_run
 from psba_tpu_torch.solvers.types import (
     DENSE_MAX_ENTRIES,
+    OptState,
     ProblemArrays,
     SolverConfig,
     resolve_damping,
 )
+from psba_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +231,34 @@ def resolve_damping_host(cfg: SolverConfig, prob: BAProblem, dtype,
     return resolve_damping(cfg, probe, f(prob.cams), f(prob.pts))
 
 
+def make_sharded_lm_repeat(cfg: SolverConfig, ctx: MeshCtx):
+    """Repeats runner of the sharded path: `run(pa, state0, iter_cap,
+    repeats) -> (acc_l2, total_itno)`, called inside each rank of the
+    group of `ctx` with its shard `pa` (local_arrays) and its state0
+    (OptState.init with `ctx`). It runs `repeats` identical
+    iter_cap-length lm_run trajectories from state0 and sums their final
+    ex_l2 (a 0-d tensor in the state's dtype, on its device, added in
+    order from zero) and their iterations (int); both are the group's,
+    the same on every rank.
+
+    The reference adds min(acc, 0) (= 0) to the cameras of each repeat so
+    that XLA cannot hoist the loop-invariant trajectory out of its one
+    fori_loop dispatch; eager PyTorch runs every repeat as called, so the
+    perturbation is left out."""
+
+    def run(pa: ProblemArrays, state0: OptState, iter_cap: int,
+            repeats: int):
+        acc = torch.zeros((), dtype=state0.cams.dtype,
+                          device=state0.cams.device)
+        itno = 0
+        for _ in range(int(repeats)):
+            out = lm_run(pa, state0, cfg, iter_cap=iter_cap, ctx=ctx)
+            acc, itno = acc + out.ex_l2, itno + out.itno
+        return acc, itno
+
+    return run
+
+
 def solve_sharded(prob: BAProblem, cfg: SolverConfig | None = None,
                   n_devices: int | None = None, dtype=None, start="lm",
                   schur="auto", device=None, timeout: float | None = None):
@@ -239,11 +273,8 @@ def solve_sharded(prob: BAProblem, cfg: SolverConfig | None = None,
     SolveResult with the points of every shard in the caller's order."""
     from psba_tpu_torch.parallel.distributed import gather_points, run_ranks
 
-    device = torch.device("cuda" if device is None else device)
+    device = resolve_device(device, "solve_sharded")
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("solve_sharded: device cuda, but torch sees "
-                               "no CUDA device (pass device=\"cpu\")")
         avail = torch.cuda.device_count()
         n = n_devices or avail
         if n > avail:
@@ -259,5 +290,5 @@ def solve_sharded(prob: BAProblem, cfg: SolverConfig | None = None,
     return gather_points([o["result"] for o in out])
 
 
-__all__ = ["ShardedProblem", "local_arrays", "resolve_damping_host",
-           "shard_problem", "solve_sharded"]
+__all__ = ["ShardedProblem", "local_arrays", "make_sharded_lm_repeat",
+           "resolve_damping_host", "shard_problem", "solve_sharded"]

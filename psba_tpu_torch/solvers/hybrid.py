@@ -45,6 +45,7 @@ from psba_tpu_torch.solvers.types import (
 )
 from psba_tpu_torch.utils import checkpoint as ckpt
 from psba_tpu_torch.utils.debug import check_finite
+from psba_tpu_torch.utils.device import resolve_device
 from psba_tpu_torch.utils.timing import PhaseTimers
 
 
@@ -96,20 +97,6 @@ class SolveResult:
         )
 
 
-def _device(device) -> torch.device:
-    """The solve's device: CUDA unless the caller names another. Without a
-    card, no device is an error, not a quiet fall-back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "psba_tpu_torch.solve runs on the CUDA device by default and "
-            "torch sees none; pass device=\"cpu\" to run the plain PyTorch "
-            "versions of the kernels on the CPU"
-        )
-    return torch.device("cuda")
-
-
 def solve(
     problem: BAProblem,
     config: SolverConfig | None = None,
@@ -143,7 +130,7 @@ def solve(
     order ("natural"). A resume refuses a checkpoint of another order.
     SolveResult.pts comes back in the caller's order."""
     dt = torch_dtype(problem.pts.dtype if dtype is None else dtype)
-    device = _device(device)
+    device = resolve_device(device, "psba_tpu_torch.solve")
     if start not in ("lm", "tr"):
         raise ValueError(f"start={start!r}: 'lm' or 'tr'")
     cfg = config or SolverConfig.for_dtype(dt)

@@ -105,7 +105,7 @@ from psba_tpu_torch.solvers.types import (
 _NU_OVERFLOW = 2.0 ** 31  # the reference's int nu wraps here
 
 
-def lm_fresh_aux(dtype, device="cpu") -> torch.Tensor:
+def lm_fresh_aux(dtype, device) -> torch.Tensor:
     """Phase-start aux vector (mu, nu, p_l2, good_cnt, first=1, 0)."""
     return torch.tensor([0.0, 2.0, 1e3, 0.0, 1.0, 0.0], dtype=dtype,
                         device=device)

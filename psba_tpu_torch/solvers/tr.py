@@ -110,7 +110,7 @@ _MAX_SOLVE_TRIES = 64
 _MAX_MODEL_TRIES = 200
 
 
-def tr_fresh_aux(cfg: SolverConfig, dtype, device="cpu") -> torch.Tensor:
+def tr_fresh_aux(cfg: SolverConfig, dtype, device) -> torch.Tensor:
     """Phase-start aux vector (delta, lambda, origin_lambda, nu, notgood,
     good_iters), the scalars tr_run seeds when state.aux is None."""
     return torch.tensor([cfg.init_delta, 0.0, 0.0, 2.0, 0.0, 0.0],

@@ -16,6 +16,7 @@ from psba_tpu_torch.ops.linearize_stream import (
 )
 from psba_tpu_torch.ops.reduce import indexed_sum
 from psba_tpu_torch.parallel.ctx import NO_MESH, MeshCtx
+from psba_tpu_torch.utils.device import resolve_device
 
 # Dense-Schur cap in (camera x point) cells: schur="auto" takes the dense
 # encoding up to it and the covisibility-pair encoding above. The dense S
@@ -207,10 +208,12 @@ class ProblemArrays:
                            else self.valid.to(self.K.dtype))
 
     @staticmethod
-    def from_problem(prob, dtype=None, device="cpu", schur="auto",
+    def from_problem(prob, dtype=None, device=None, schur="auto",
                      backend="auto", valid=None) -> "ProblemArrays":
         """Build the tensors of a psba_tpu_torch.problem.BAProblem on
-        `device` in `dtype` (default: the problem's own). `schur` picks the
+        `device` (default: the CUDA device, an error without one;
+        device="cpu" for the plain versions) in `dtype` (default: the
+        problem's own). `schur` picks the
         encoding: "dense", "pairs", or "auto" (dense up to
         DENSE_MAX_ENTRIES camera x point cells, pairs above). `backend`
         (SolverConfig.backend, resolved in `dtype`) says which path will
@@ -221,6 +224,7 @@ class ProblemArrays:
         real observations of a padded problem (parallel.shard); padded
         observations must repeat a real one, stay out of blk_idx and the
         pair list (bucket C*C), and keep the stream sorted by point."""
+        device = resolve_device(device, "ProblemArrays.from_problem")
         schur = ("dense" if dense_encoding(schur, prob.n_cams, prob.n_pts)
                  else "pairs")
         dt = torch_dtype(prob.pts.dtype if dtype is None else dtype)

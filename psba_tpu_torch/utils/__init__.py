@@ -1,1 +1,2 @@
-"""Host utilities: phase timing and checkpointing."""
+"""Host utilities: phase timing, checkpointing, NaN checks, the device
+resolver and the roofline model."""

@@ -1,4 +1,5 @@
-"""Rank functions for tests/test_torch_parallel.py, run by
+"""Rank functions for tests/test_torch_parallel.py and
+tests/test_torch_entry.py, run by
 psba_tpu_torch.parallel.distributed.run_ranks in spawned processes (a
 module of its own, so a rank imports torch and the port only)."""
 
@@ -32,6 +33,15 @@ def mesh_reductions(device, seed):
         psum_rs=ctx.psum_rs(t(b)).cpu().numpy(),
         stats=ctx.summary(),
     )
+
+
+def lm_repeats(device, repeats, **kw):
+    """parallel.distributed.lm_repeat_rank with `repeats` repeats and with
+    one, in the same ranks: (the repeated run's result, the single's)."""
+    from psba_tpu_torch.parallel.distributed import lm_repeat_rank
+
+    return (lm_repeat_rank(device, repeats=repeats, **kw),
+            lm_repeat_rank(device, repeats=1, **kw))
 
 
 def fail_on_rank_one(device):

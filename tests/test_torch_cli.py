@@ -191,16 +191,37 @@ def test_cli_mesh_refuses_checkpoint_and_polish():
 def test_cli_imports_no_jax():
     """main() of the CLI, run in a fresh interpreter, imports neither jax
     nor any module of psba_tpu; nor do the port's parallel modules, its
-    front-end or its roofline model."""
+    front-end, its roofline model, its device resolver, nor the direct
+    lm_run entry (from_problem -> OptState.init -> lm_run), the sharded
+    repeats runner and quat_normalize_vec when they run."""
     code = (
         "import sys\n"
+        "import torch\n"
         "from psba_tpu_torch import cli\n"
         "import psba_tpu_torch.parallel.distributed\n"
         "import psba_tpu_torch.parallel.shard\n"
         "import psba_tpu_torch.frontend.pipeline\n"
         "import psba_tpu_torch.utils.roofline\n"
+        "import psba_tpu_torch.utils.device\n"
+        "from psba_tpu_torch.io import bal_to_problem\n"
+        "from psba_tpu_torch.models import quat_normalize_vec\n"
+        "from psba_tpu_torch.parallel import NO_MESH\n"
+        "from psba_tpu_torch.parallel.distributed import lm_repeat_rank\n"
+        "from psba_tpu_torch.parallel.shard import make_sharded_lm_repeat\n"
+        "from psba_tpu_torch.solvers import OptState, ProblemArrays, "
+        "SolverConfig, resolve_damping\n"
         f"cli.main(['--cams', {MINI_BAL!r}, '--bal', '--device', 'cpu', "
         "'--max-iters', '3', '--json'])\n"
+        "quat_normalize_vec(torch.tensor([[-2.0, 1.0, 0.0, 0.0]]))\n"
+        f"p = bal_to_problem({MINI_BAL!r})\n"
+        "pa = ProblemArrays.from_problem(p, dtype=torch.float32, "
+        "device='cpu')\n"
+        "t = lambda a: torch.as_tensor(a, dtype=torch.float32)\n"
+        "cfg = resolve_damping(SolverConfig.for_dtype(torch.float32), pa, "
+        "t(p.cams), t(p.pts))\n"
+        "run = make_sharded_lm_repeat(cfg, NO_MESH)\n"
+        "acc, itno = run(pa, OptState.init(pa, t(p.cams), t(p.pts)), 2, 2)\n"
+        "assert itno == 4, itno\n"
         "bad = [m for m in sys.modules if m in ('jax', 'psba_tpu') or "
         "m.startswith(('jax.', 'jaxlib', 'psba_tpu.'))]\n"
         "assert not bad, bad\n"

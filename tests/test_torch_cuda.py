@@ -636,7 +636,7 @@ def test_xla_functions_on_cuda_match_cpu(cuda):
     prob = synthetic_problem(n_cams=13, n_pts=700, seed=2)
     f64 = torch.float64
     C, P = prob.n_cams, prob.n_pts
-    pa = ProblemArrays.from_problem(prob, dtype=f64)
+    pa = ProblemArrays.from_problem(prob, dtype=f64, device="cpu")
     pa_c = ProblemArrays.from_problem(prob, dtype=f64, device=cuda)
     assert pa_c.obs_du is None and pa_c.blk_idx is not None
     cams = torch.as_tensor(prob.cams + 1e-3, dtype=f64)

@@ -88,7 +88,7 @@ def _both(jprob, schur):
     fields = {k: np.asarray(getattr(jpa, k)) for k in _PA
               if getattr(jpa, k) is not None}
     tpa, _, _ = from_reference(fields, np.asarray(jprob.cams),
-                               np.asarray(jprob.pts))
+                               np.asarray(jprob.pts), device="cpu")
     return jpa, tpa
 
 
@@ -221,11 +221,12 @@ def test_xla_S_matches_dense3_and_pairs(mini):
     from psba_tpu_torch.ops import linearize_stream as tls
 
     _, prob = mini
-    pa_x = ProblemArrays.from_problem(prob, dtype=F64, schur="dense")
+    pa_x = ProblemArrays.from_problem(prob, dtype=F64, schur="dense",
+                                      device="cpu")
     pa_d = ProblemArrays.from_problem(prob, dtype=F64, schur="dense",
-                                      backend="pallas")
+                                      backend="pallas", device="cpu")
     pa_p = ProblemArrays.from_problem(prob, dtype=F64, schur="pairs",
-                                      backend="pallas")
+                                      backend="pallas", device="cpu")
     assert pa_x.obs_du is None and pa_x.stream is None
     cams, pts = (torch.from_numpy(a) for a in _state(prob, 6))
     C, P, mu = prob.n_cams, prob.n_pts, 3.7
@@ -298,11 +299,12 @@ def test_backend_resolution(mini):
     for dt in (F64, torch.float32):
         for backend in ("auto", "pallas", "xla"):
             pa = ProblemArrays.from_problem(prob, dtype=dt, schur="dense",
-                                            backend=backend)
+                                            backend=backend, device="cpu")
             k = use_kernels(SolverConfig(backend=backend), dt)
             assert (pa.obs_du is not None) is k and (pa.stream is not None) \
                 is k and pa.blk_idx is not None
-    xla_pa = ProblemArrays.from_problem(prob, dtype=F64, schur="dense")
+    xla_pa = ProblemArrays.from_problem(prob, dtype=F64, schur="dense",
+                                        device="cpu")
     with pytest.raises(ValueError, match="XLA form"):
         xla_pa.need(kernels=True)
 
@@ -324,7 +326,7 @@ def test_lm_run_xla_matches_reference(mini, schur):
               damping="additive", backend="xla")
     ref = lm_run_jit(jpa, jst, JSolverConfig.for_dtype(jnp.float64, **kw))
     st = state_from_reference({k: np.asarray(v) for k, v in
-                               jst._asdict().items()})
+                               jst._asdict().items()}, device="cpu")
     out = lm_run(tpa, st, SolverConfig.for_dtype(F64, **kw))
     assert out.itno == int(ref.itno) == 6
     assert out.flag == int(ref.flag) == CC.ITER_CONTINUE
@@ -355,7 +357,7 @@ def test_tr_run_xla_matches_reference(mini, schur):
     kw = dict(max_iters=5, record_history=True, backend="xla")
     ref = tr_run_jit(jpa, jst, JSolverConfig.for_dtype(jnp.float64, **kw))
     st = state_from_reference({k: np.asarray(v) for k, v in
-                               jst._asdict().items()})
+                               jst._asdict().items()}, device="cpu")
     out = tr_run(tpa, st, SolverConfig.for_dtype(F64, **kw))
     assert out.itno == int(ref.itno) == 5 and out.flag == int(ref.flag)
     h, hr = out.history, np.asarray(ref.history)
@@ -407,7 +409,8 @@ def test_default_f64_solve_matches_reference(name):
 def _polish_start_l2(tprob, res_main, schur):
     """L2 in float64 at the end of the float32 run: where the polish
     starts."""
-    pa = ProblemArrays.from_problem(tprob, dtype=F64, schur=schur)
+    pa = ProblemArrays.from_problem(tprob, dtype=F64, schur=schur,
+                                    device="cpu")
     st = OptState.init(pa, torch.from_numpy(res_main.cams.astype(np.float64)),
                        torch.from_numpy(res_main.pts.astype(np.float64)))
     return float(st.ex_l2)

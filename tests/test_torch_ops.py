@@ -53,7 +53,7 @@ def _both(prob, seed):
     pa_np = {k: np.asarray(getattr(jpa, k)) for k in (
         "K", "q0", "obs", "cam_idx", "pt_idx", "obs_du", "obs_dv",
         "valid_d")}
-    tpa, tcams, tpts = from_reference(pa_np, cams, pts)
+    tpa, tcams, tpts = from_reference(pa_np, cams, pts, device="cpu")
     return jpa, jnp.asarray(cams), jnp.asarray(pts), tpa, tcams, tpts
 
 

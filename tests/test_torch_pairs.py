@@ -73,7 +73,7 @@ def _both(prob, dtype):
     jpa = JProblemArrays.from_problem(prob, dtype=dtype, schur="pairs")
     tpa, _, _ = from_reference({k: np.asarray(getattr(jpa, k)) for k in _PA},
                                np.asarray(prob.cams, dtype),
-                               np.asarray(prob.pts, dtype))
+                               np.asarray(prob.pts, dtype), device="cpu")
     return jpa, tpa
 
 
@@ -285,8 +285,9 @@ def test_pair_S_matches_dense3_S(prob_mini_bal_t):
     prob = prob_mini_bal_t
     f64 = torch.float64
     pa_d = ProblemArrays.from_problem(prob, dtype=f64, schur="dense",
-                                      backend="pallas")
-    pa_p = ProblemArrays.from_problem(prob, dtype=f64, schur="pairs")
+                                      backend="pallas", device="cpu")
+    pa_p = ProblemArrays.from_problem(prob, dtype=f64, schur="pairs",
+                                      device="cpu")
     cams, pts = (torch.from_numpy(a) for a in _state(prob, 6, np.float64))
     C, P, mu = prob.n_cams, prob.n_pts, 3.7
     _ex, _l2, U, V, W, ga, gb, _, _ = tls.linearize_stream(
@@ -328,7 +329,7 @@ def test_from_problem_pairs_matches_reference(prob_synth):
     _jprob, tprob = _problems("synth")
     jpa = JProblemArrays.from_problem(prob_synth, schur="pairs")
     pa = ProblemArrays.from_problem(tprob, dtype=torch.float32,
-                                    schur="pairs")
+                                    schur="pairs", device="cpu")
     assert pa.pairs and pa.obs_du is None and pa.valid_d is None
     for k in ("pair_o1", "pair_o2", "pair_bucket", "cam_idx", "pt_idx"):
         np.testing.assert_array_equal(getattr(pa, k).numpy(),
@@ -337,10 +338,10 @@ def test_from_problem_pairs_matches_reference(prob_synth):
     np.testing.assert_array_equal(pa.pt_idx32.numpy(), tprob.pt_idx)
     assert pa.stream.perm.shape == (tprob.n_obs,)
     dense = ProblemArrays.from_problem(tprob, schur="dense",
-                                       backend="pallas")
+                                       backend="pallas", device="cpu")
     assert not dense.pairs and dense.valid_d is not None
     with pytest.raises(ValueError):
-        ProblemArrays.from_problem(tprob, schur="blocks")
+        ProblemArrays.from_problem(tprob, schur="blocks", device="cpu")
 
 
 def test_auto_takes_pairs_above_the_cap(monkeypatch):
@@ -349,11 +350,11 @@ def test_auto_takes_pairs_above_the_cap(monkeypatch):
     the schur="pairs" trajectory exactly)."""
     _jprob, prob = _problems("synth")
     cells = prob.n_cams * prob.n_pts
-    assert not ProblemArrays.from_problem(prob).pairs
+    assert not ProblemArrays.from_problem(prob, device="cpu").pairs
     monkeypatch.setattr(ttypes, "DENSE_MAX_ENTRIES", cells)
-    assert not ProblemArrays.from_problem(prob).pairs
+    assert not ProblemArrays.from_problem(prob, device="cpu").pairs
     monkeypatch.setattr(ttypes, "DENSE_MAX_ENTRIES", cells - 1)
-    assert ProblemArrays.from_problem(prob).pairs
+    assert ProblemArrays.from_problem(prob, device="cpu").pairs
     from psba_tpu_torch.solvers.hybrid import solve
 
     cfg = SolverConfig.for_dtype(torch.float32, max_iters=6,
@@ -379,7 +380,7 @@ def test_from_reference_with_pairs(prob_mini_bal_j):
     np.testing.assert_allclose(float(st.ex_l2), float(jst.ex_l2), rtol=1e-12)
     with pytest.raises(ValueError, match="encoding|dense|pair"):
         from_reference({k: np.asarray(getattr(jpa, k)) for k in _PA[:5]},
-                       cams, pts)
+                       cams, pts, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -412,7 +413,7 @@ def test_lm_run_pairs_matches_reference(prob_mini_bal_j, dtype):
                                    backend="auto" if f64 else "pallas")
     ref = lm_run_jit(jpa, jst, jcfg)
     st = state_from_reference({k: np.asarray(v) for k, v in
-                               jst._asdict().items()})
+                               jst._asdict().items()}, device="cpu")
     out = lm_run(tpa, st, SolverConfig.for_dtype(
         tdt, max_iters=6, lm_switch_count=10_000, record_history=True,
         damping="additive"))
@@ -451,7 +452,7 @@ def test_tr_run_pairs_matches_reference(prob_mini_bal_j):
     ref = tr_run_jit(jpa, jst, JSolverConfig.for_dtype(
         jnp.float32, backend="pallas", max_iters=5, record_history=True))
     st = state_from_reference({k: np.asarray(v) for k, v in
-                               jst._asdict().items()})
+                               jst._asdict().items()}, device="cpu")
     out = ttr.tr_run(tpa, st, SolverConfig.for_dtype(
         torch.float32, max_iters=5, record_history=True))
     assert out.itno == int(ref.itno) == 5 and out.flag == int(ref.flag)

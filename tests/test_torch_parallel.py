@@ -260,7 +260,7 @@ def test_one_rank_same_bits_as_lm_run(dt, schur):
     cfg = _lm_cfg(dt)
     got = solve_sharded(tp, cfg, n_devices=1, dtype=dt, schur=schur,
                         device="cpu")
-    pa = ProblemArrays.from_problem(tp, dtype=dt, schur=schur)
+    pa = ProblemArrays.from_problem(tp, dtype=dt, schur=schur, device="cpu")
     t = lambda a: torch.as_tensor(a, dtype=dt)
     st = lm_run(pa, OptState.init(pa, t(tp.cams), t(tp.pts)), cfg)
     assert got.phases == [("lm", st.itno, st.flag)]

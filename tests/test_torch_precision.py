@@ -131,7 +131,7 @@ def test_high_tr_rows_match_reference_high():
         jnp.float32, backend="pallas", max_iters=5, record_history=True,
         s_precision="high"))
     st = state_from_reference({k: np.asarray(v) for k, v in
-                               jst._asdict().items()})
+                               jst._asdict().items()}, device="cpu")
     out = ttr.tr_run(tpa, st, SolverConfig.for_dtype(
         torch.float32, max_iters=5, record_history=True, s_precision="high"))
     assert out.itno == int(ref.itno) == 5 and out.flag == int(ref.flag)

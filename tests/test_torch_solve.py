@@ -114,7 +114,8 @@ def test_damping_probe_matches_reference(fixture, request):
     jp = jnp.asarray(prob.pts, jnp.float64)
     ref = j_diag_minmax(jpa.K, jpa.q0, jc, jp, jpa.cam_idx, jpa.pt_idx,
                         jpa.valid, False, prob.n_cams, prob.n_pts)
-    pa = ProblemArrays.from_problem(_port(prob), dtype=torch.float64)
+    pa = ProblemArrays.from_problem(_port(prob), dtype=torch.float64,
+                                    device="cpu")
     tc = torch.as_tensor(prob.cams, dtype=torch.float64)
     tp = torch.as_tensor(prob.pts, dtype=torch.float64)
     got = _diag_minmax(pa.K, pa.q0, tc, tp, pa.cam_idx, pa.pt_idx, False)
@@ -144,7 +145,7 @@ def test_state_carries_across(prob_mini_bal):
         "K", "q0", "obs", "cam_idx", "pt_idx", "obs_du", "obs_dv",
         "valid_d")}
     pa, cams, pts = from_reference(pa_np, np.asarray(jst.cams),
-                                   np.asarray(jst.pts))
+                                   np.asarray(jst.pts), device="cpu")
     st = OptState.init(pa, cams, pts)
     np.testing.assert_allclose(float(st.ex_l2), float(jst.ex_l2), rtol=1e-12)
     back = to_numpy(st)

@@ -114,7 +114,7 @@ def test_point_runs_give_every_point_sum(case):
     counts = CASES[case]
     pt = _pt_idx(counts)
     cam = np.random.default_rng(1).integers(0, 5, len(pt))
-    tables = ls.build_stream_tables(cam, pt, 5, len(counts))
+    tables = ls.build_stream_tables(cam, pt, 5, len(counts), device="cpu")
     pack = np.random.default_rng(2).standard_normal((len(pt), 12))
     ref = np.zeros((len(counts), 12))
     np.add.at(ref, pt, pack)
@@ -126,7 +126,7 @@ def test_stream_tables_point_fields():
     counts = CASES["long_points_between"]
     pt = _pt_idx(counts)
     cam = np.arange(len(pt)) % 3
-    st = ls.build_stream_tables(cam, pt, 3, len(counts) + 2)
+    st = ls.build_stream_tables(cam, pt, 3, len(counts) + 2, device="cpu")
     assert st.n_pts == len(counts) + 2
     assert st.cam32.dtype == st.pt32.dtype == st.runs.dtype == torch.int32
     np.testing.assert_array_equal(st.cam32.numpy(), cam)
@@ -146,7 +146,7 @@ def test_point_runs_need_point_order():
     pt = np.array([0, 2, 1, 1])
     with pytest.raises(ValueError, match="sorted by point"):
         ls.build_point_runs(pt, 3)
-    st = ls.build_stream_tables(np.zeros(4, int), pt, 1, 3)
+    st = ls.build_stream_tables(np.zeros(4, int), pt, 1, 3, device="cpu")
     assert st.runs.shape == (0, 5)
 
 
@@ -157,7 +157,7 @@ def test_problem_arrays_share_index_copies():
     prob_mini_bal = bal_to_problem(
         str(Path(__file__).parent / "data" / "mini_bal.txt"))
     pa = ProblemArrays.from_problem(prob_mini_bal, dtype=torch.float32,
-                                    schur="pairs")
+                                    schur="pairs", device="cpu")
     assert pa.cam_idx32 is pa.stream.cam32 and pa.pt_idx32 is pa.stream.pt32
     assert pa.stream.n_pts == prob_mini_bal.n_pts
     _check_runs(np.bincount(prob_mini_bal.pt_idx,

@@ -127,7 +127,7 @@ def test_clustered_problem_same_initial_l2(name):
     t2, _newpos = tprob.with_tile_point_order()
     l2 = []
     for p in (tprob, t2):
-        pa = ProblemArrays.from_problem(p, dtype=F64)
+        pa = ProblemArrays.from_problem(p, dtype=F64, device="cpu")
         st = OptState.init(pa, torch.as_tensor(p.cams, dtype=F64),
                            torch.as_tensor(p.pts, dtype=F64))
         l2.append(float(st.ex_l2))
@@ -144,7 +144,8 @@ def test_build_tile_mask_is_the_occupancy(name):
     t2, _newpos = tprob.with_tile_point_order()
     share = []
     for p in (tprob, t2):
-        pa = ProblemArrays.from_problem(p, dtype=F32, schur="dense")
+        pa = ProblemArrays.from_problem(p, dtype=F32, schur="dense",
+                                        device="cpu")
         want = (_occupancy(p) > 0).astype(np.int32)
         assert pa.tile_mask.dtype == torch.int32
         assert pa.tile_mask.shape == (p.n_cams, ld.padded_points(p.n_pts)
@@ -159,7 +160,8 @@ def test_build_tile_mask_is_the_occupancy(name):
     if name == "ring":
         assert share[1] < 0.8 * share[0]
     # the XLA form gets no grid tables and no occupancy table
-    pa64 = ProblemArrays.from_problem(t2, dtype=F64, schur="dense")
+    pa64 = ProblemArrays.from_problem(t2, dtype=F64, schur="dense",
+                                      device="cpu")
     assert pa64.tile_mask is None and pa64.valid_d is None
 
 
@@ -167,7 +169,7 @@ def _dense_args(prob, seed=0):
     """Float32 dense arguments of the clustered `prob` at cameras and
     points perturbed from a seed, its tile mask, and a second state."""
     p2, _ = prob.with_tile_point_order()
-    pa = ProblemArrays.from_problem(p2, dtype=F32, schur="dense")
+    pa = ProblemArrays.from_problem(p2, dtype=F32, schur="dense", device="cpu")
     rng = np.random.default_rng(seed)
     C = p2.n_cams
     f = lambda a: torch.as_tensor(a, dtype=F32)
