@@ -1,0 +1,113 @@
+"""BENCHMARK.json against the benchmark's contract, and every file it names
+found by name under portbench/."""
+
+import json
+import re
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+from portbench import harness  # noqa: E402
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def one_line(s, most=200):
+    return isinstance(s, str) and 1 <= len(s) <= most and "\n" not in s \
+        and "\t" not in s
+
+
+def test_top_level_keys_and_command():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert BENCH["paths"] == ["portbench"]
+    assert BENCH["command"] == ["python3", "portbench/run.py"]
+    assert all(one_line(w) for w in BENCH["command"])
+    assert isinstance(BENCH["run_seconds"], int)
+    assert 1 <= BENCH["run_seconds"] <= 51
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_configs_files_and_names():
+    files = set()
+    used = {w["config"] for w in BENCH["workloads"]}
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and c["name"] in used
+        assert one_line(c["source"]) and one_line(c["why"])
+        assert c["file"].startswith("portbench/") and c["file"] not in files
+        files.add(c["file"])
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
+        assert all(NAME.match(k) and k in cfg for k in c["reduced"])
+        assert cfg["dtype"] == "float32" and cfg["s_precision"] == "highest"
+
+
+@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
+def test_workload_found_by_name(w):
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    assert NAME.match(w["name"]) and NAME.match(w["traffic"])
+    assert w["chips"] == 1 and one_line(w["why"])
+    spec = harness.cell(w["name"])
+    drv = harness.driver(spec)
+    assert all(callable(getattr(drv, k)) for k in ("Program", "Check",
+                                                   "end_to_end"))
+    assert isinstance(drv.SPAN, str)
+    assert "proj_err" in spec["limits"]
+    assert spec["limits"].get("iters_gap", 0) == 0
+    names = {m["name"] for m in spec["end_to_end"]}
+    assert "setup_s" in names and len(names) >= 2
+    values = dict(drv.end_to_end(dict(seconds=1.0, iterations=1,
+                                      repeats=1)), setup_s=1, peak_mem_gib=1)
+    for n in names:
+        assert harness.end_to_end_value(n, values) > 0
+    assert spec["per_layer"]
+    for m in spec["per_layer"]:
+        assert any(e["name"] == m["moves"] for e in spec["end_to_end"])
+
+
+def test_metrics_contract():
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    assert e2e["setup_s"]["bound"] == 0.25
+    cells = {w["name"] for w in BENCH["workloads"]}
+    layers = set()
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                          "source"}
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
+                                          "layer", "moves"}
+        assert m["moves"] in e2e and one_line(m["layer"])
+        layers.add(m["layer"])
+        assert callable(harness.metric_reader(m["name"]).read)
+        assert set(m["workloads"]) <= cells
+        assert set(m["workloads"]) <= set(e2e[m["moves"]].get("workloads",
+                                                               cells))
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+        if m["name"].endswith("_roofline") or "_roofline." in m["name"]:
+            assert m["unit"] == "%"
+    names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    assert len(names) == len(set(names))
+
+
+def test_kernel_counts_found_by_name():
+    ks = harness.kernel_files()
+    assert {"linearize_dense", "spd_solve", "gain_dense", "linearize_stream",
+            "residual_l2"} <= set(ks)
+    shape = dict(C=138, P=19878, O=79474)
+    for name, k in ks.items():
+        assert k.RECORDS and len(k.COUNTER) == 3
+        nbytes, flops = k.work(shape)
+        assert nbytes > 0 and flops > 0
+        # the counter the file names is the program's
+        assert harness.read_counter(k.COUNTER) >= 0
