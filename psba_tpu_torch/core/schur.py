@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from psba_tpu_torch.ops.reduce import indexed_sum
+from psba_tpu_torch.utils.timing import host_read
 
 
 def _pin_fp32_matmul() -> None:
@@ -132,9 +133,10 @@ def inv3x3_planar3(Vp: torch.Tensor):
     """Batched symmetric 3x3 inverse on planar [3, 3, P] blocks by
     cofactors, with the pivoted determinant as fallback where the closed
     form's |det| < 1e-16 (unscaled). The fallback is only evaluated when
-    some block needs it. Returns (Vinv [3, 3, P], ok) with ok a 0-d bool
-    tensor: False when any block is singular (|scaled det| <= 8 eps or
-    non-finite)."""
+    some block needs it; that test is a host read (utils.timing.host_read),
+    so every call waits for the card. Returns (Vinv [3, 3, P], ok) with ok
+    a 0-d bool tensor: False when any block is singular (|scaled det| <=
+    8 eps or non-finite)."""
     a, b, c = Vp[0, 0], Vp[0, 1], Vp[0, 2]
     d, e, f = Vp[1, 1], Vp[1, 2], Vp[2, 2]
     inv_m, inv_m3 = _block_scale(a, b, c, d, e, f)
@@ -145,7 +147,7 @@ def inv3x3_planar3(Vp: torch.Tensor):
     co02 = b * e - c * d
     det = a * co00 + b * co01 + c * co02
     need_fallback = det.abs() < 1e-16 * inv_m3
-    if bool(need_fallback.any()):
+    if host_read(need_fallback.any().item):
         det_piv = _pivoted_det3_rows(((a, b, c), (b, d, e), (c, e, f)))
         det = torch.where(need_fallback, det_piv, det)
     eps = torch.finfo(det.dtype).eps
