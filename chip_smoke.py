@@ -18,8 +18,9 @@ Phases, in order; any failure raises and the script exits nonzero:
   1. environment: CUDA present, card name and power limit, kernels built
      from psba_tpu_torch/csrc (nvcc, all sources at once, seconds printed);
   2. every kernel against its plain PyTorch version on CUDA tensors at the
-     main paths' shapes (the trial-step residual and the observation stream
-     with the pair path's LM and TR flags at final961_pairs below; the
+     main paths' shapes (the trial-step residual, the observation stream
+     with the pair path's LM and TR flags and the pair Schur product, also
+     against float64, at final961_pairs below; the
      others at 138 cameras x 19,878 requested points, the counts of BAL's
      Ladybug-138: n = 126 / 828 reduced systems and n = 1024, the largest
      the kernel takes, each at every cluster size the card schedules, the
@@ -29,9 +30,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      without its fused gain; these dense checks pass no occupancy table),
      with the tolerance stated, CUDA-event times
      (median after warm-up), each kernel's device time from the profiler
-     (for linearize_dense, gain_dense, jgram_dense and residual_l2 also
-     their launches and torch ops per call, host time, and two calls
-     checked bit-identical), its bound
+     (for linearize_dense, gain_dense, jgram_dense, residual_l2 and
+     schur_pairs also their launches and torch ops per call, host time,
+     and two calls checked bit-identical), its bound
      (the larger of bytes over HBM bandwidth and flops over the float32
      rate) and, where one PyTorch call computes the same function, that
      call's time;
@@ -57,7 +58,7 @@ Phases, in order; any failure raises and the script exits nonzero:
      (final961_pairs: 961 cameras of the synthetic ring, 187,103 points,
      about 9 observations each), which solve(schur="auto") must put on the
      pair encoding by itself: LM only, then the default config, counters
-     reset and read around each;
+     reset and read around each (the pair Schur kernel once a try);
   3d. the float64 path: the default float64 solve of the 138-camera problem
      (the XLA form: cuBLAS DGEMM, cuSOLVER, torch ops), counters reset and
      read around it (no kernel may launch), two runs with the same final
@@ -596,6 +597,69 @@ def check_pair_stream(prob, rargs, dev):
     return out, calls
 
 
+def check_schur_pairs(prob, dev):
+    """The pair Schur kernel (ops.schur_pairs) on CUDA tensors at `prob`'s
+    pair list, Y and W [O, 6, 3] unit normals from a seed: against its
+    plain version (the batched product and index_put_ bucket sum it
+    replaced) and against that sum in float64, each to 1e-5 of max |S|
+    (bucket sums of up to thousands of float32 products of unit normals,
+    in the kernel's lane order against index_put_'s; a kernel that drops,
+    repeats or misplaces a pair is off by the size of a product, about a
+    thousandth of max |S|), every entry finite, two calls bit-identical;
+    then wrapper, host and plain times, launches and torch ops per call,
+    and the bound. Returns (the kernel's row, its arguments)."""
+    import torch
+
+    from psba_tpu_torch.ops import schur_pairs as sp
+
+    C, O = prob.n_cams, prob.n_obs
+    i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+    o1, o2, bucket = i(prob.pair_o1), i(prob.pair_o2), i(prob.pair_bucket)
+    start = sp.pair_offsets(bucket, C)
+    N = int(start[-1])
+    g = torch.Generator(device=dev).manual_seed(0)
+    Y = torch.randn((O, 6, 3), generator=g, device=dev)
+    W = torch.randn((O, 6, 3), generator=g, device=dev)
+    args = (Y, W, o1, o2, bucket, start, C)
+    got = sp.schur_pairs(*args)
+    again = sp.schur_pairs(*args)
+    errs = [compare("schur_pairs vs plain", got,
+                    sp.schur_pairs_plain(Y, W, o1, o2, bucket, C), 1e-5)]
+    torch.cuda.empty_cache()
+    errs.append(compare("schur_pairs vs float64", got, sp.schur_pairs_plain(
+        Y.double(), W.double(), o1, o2, bucket, C), 1e-5))
+    need(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+         "schur_pairs: two calls give different bits")
+    del got, again
+    torch.cuda.empty_cache()
+    call = lambda: sp.schur_pairs(*args)
+    prof = call_profile(call, sp.schur_pairs, ("schur_pairs_kernel",))
+    # reads each pair's two indices once, each Y and W row once, the
+    # offsets once; writes S once; 108 FMAs a pair
+    row = dict(
+        max_abs_err=max(e for e, _ in errs),
+        max_rel_err=max(r for _, r in errs),
+        ms=cuda_ms(call), host_ms=host_ms(call),
+        launches_per_call=prof["launches_per_call"],
+        torch_ops_per_call=prof["torch_ops"],
+        plain_ms=cuda_ms(lambda: sp.schur_pairs_plain(Y, W, o1, o2, bucket,
+                                                      C), warmup=1, runs=5),
+        library_ms=None, pairs=N,
+        **bound(16 * N + 144 * O + 8 * (C * C + 1) + 144 * C * C, 216 * N),
+    )
+    print(f"  schur_pairs: {N} pairs in {C * C} buckets; wrapper "
+          f"{row['ms']:.4f} ms (host {row['host_ms']:.4f} ms), plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); per call {prof['launches_per_call']} "
+          f"launches {prof['kernels']}, torch ops {prof['torch_ops']}; two "
+          "calls bit-identical", flush=True)
+    need(prof["launches_per_call"] == 1
+         and set(prof["torch_ops"]) <= {"aten::empty"},
+         f"schur_pairs: not one launch and its output's allocation per "
+         f"call ({prof['kernels']}, {prof['torch_ops']})")
+    return row, args
+
+
 def occupancy(prob, n_tiles):
     """[C, n_tiles] bool: camera c observes a point of 128-point tile t,
     from the observation list."""
@@ -771,6 +835,7 @@ def main(argv) -> int:
     from psba_tpu_torch.ops import linearize_dense as ld
     from psba_tpu_torch.ops import linearize_stream as ls
     from psba_tpu_torch.ops import residual_dense as rd
+    from psba_tpu_torch.ops import schur_pairs as sp
     from psba_tpu_torch.solvers import ProblemArrays, SolverConfig
     from psba_tpu_torch.solvers import tr as trmod
     from psba_tpu_torch.solvers.types import DENSE_MAX_ENTRIES
@@ -798,6 +863,7 @@ def main(argv) -> int:
           flush=True)
     rows["residual_l2"], rargs = check_residual_l2(big, dev)
     pair_stream, pair_calls = check_pair_stream(big, rargs, dev)
+    rows["schur_pairs"], spargs = check_schur_pairs(big, dev)
 
     t0 = time.perf_counter()
     prob = synthetic_problem(n_cams=138, n_pts=19878, seed=0)
@@ -1152,11 +1218,13 @@ def main(argv) -> int:
                                 **tr_flags)
             rd.jgram_dense(*j2, kq=pa.kq)
             ls.residual_l2(*rargs)
+            sp.schur_pairs(*spargs)
 
     wrappers = dict(linearize_dense=ld.linearize_dense,
                     gain_dense=rd.gain_dense, spd_solve=chol.spd_solve,
                     linearize_stream=ls.linearize_stream,
-                    jgram_dense=rd.jgram_dense, residual_l2=ls.residual_l2)
+                    jgram_dense=rd.jgram_dense, residual_l2=ls.residual_l2,
+                    schur_pairs=sp.schur_pairs)
     need(set(wrappers) == set(rows), f"rows {sorted(rows)}")
     prof = complete_profile(
         in_turns,
@@ -1200,7 +1268,7 @@ def main(argv) -> int:
               f"{v['kernel_ms']:.4f} ms), plain {v['plain_ms']:.4f} ms, "
               f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), library "
               f"{lib}", flush=True)
-    del pa, gram, j2, rargs
+    del pa, gram, j2, rargs, spargs
     torch.cuda.empty_cache()
 
     # ---- phase 2t: the (camera, tile) skip on both dense problems
@@ -1228,7 +1296,8 @@ def main(argv) -> int:
     kern = {"linearize_dense": ld.linearize_dense, "gain_dense": rd.gain_dense,
             "spd_solve": chol.spd_solve,
             "linearize_stream": ls.linearize_stream,
-            "jgram_dense": rd.jgram_dense, "residual_l2": ls.residual_l2}
+            "jgram_dense": rd.jgram_dense, "residual_l2": ls.residual_l2,
+            "schur_pairs": sp.schur_pairs}
     lm_path = ("linearize_dense", "spd_solve", "gain_dense")
     dense_path = lm_path + ("linearize_stream", "jgram_dense")
 
@@ -1282,6 +1351,8 @@ def main(argv) -> int:
          f"LM path: abnormal stop {res_lm.flag_name}")
     for k in lm_path:
         need(launches_lm[k] > 0, f"kernel {k} not launched on the LM path")
+    need(launches_lm["schur_pairs"] == 0,
+         "dense LM path: the pair kernel launched")
 
     # 3b. the default hybrid solve (LM -> TR -> ...), no device named
     cfg = SolverConfig.for_dtype(f32, record_history=True)
@@ -1517,6 +1588,13 @@ def main(argv) -> int:
         for k in ("linearize_dense", "gain_dense", "jgram_dense"):
             need(got[k] == 0, f"pair path, {label}: dense kernel {k} "
                  "launched, so schur='auto' did not take the pairs")
+        # S once a try: on the LM path each try is one residual_l2 launch;
+        # TR builds S once a solve try, then tries models on it (none when
+        # its step stops the run), so there the counts differ
+        need(got["schur_pairs"] == got["residual_l2"] if c is cfg_lm
+             else got["schur_pairs"] > 0,
+             f"pair path, {label}: {got['schur_pairs']} pair-kernel "
+             f"launches against {got['residual_l2']} tries")
         need(oversized > 0, f"pair path, {label}: no oversized spd_solve")
     need("tr" in pair_runs["default"]["per"],
          "pair path, default: never entered TR")
@@ -1710,6 +1788,8 @@ def main(argv) -> int:
                              "psba_tpu/ops/linearize_pallas.py:273"),
         "residual_l2": ("psba_tpu_torch/csrc/residual_l2.cu",
                         "psba_tpu/ops/linearize_pallas.py:347"),
+        "schur_pairs": ("psba_tpu_torch/csrc/schur_pairs.cu",
+                        "none: psba_tpu/core/schur.py::schur_S (XLA)"),
     }
     pd, pl = pair_runs["default"], pair_runs["LM path"]
     src_names = list(src)
@@ -2048,6 +2128,7 @@ def warm_solve_rank(device, s_reduces, **kw) -> list:
 
     from psba_tpu_torch.ops import cholesky, linearize_dense
     from psba_tpu_torch.ops import linearize_stream, residual_dense
+    from psba_tpu_torch.ops import schur_pairs
 
     cfg = kw.pop("cfg")
     solve_distributed(device=device, cfg=cfg._replace(max_iters=2), **kw)
@@ -2058,7 +2139,7 @@ def warm_solve_rank(device, s_reduces, **kw) -> list:
         for fn in (linearize_dense.linearize_dense, cholesky.spd_solve,
                    residual_dense.gain_dense, residual_dense.jgram_dense,
                    linearize_stream.linearize_stream,
-                   linearize_stream.residual_l2):
+                   linearize_stream.residual_l2, schur_pairs.schur_pairs):
             fn.launches = 0
         out.append(solve_rank(device, cfg=cfg._replace(s_reduce=s), **kw))
     return out
@@ -2191,7 +2272,7 @@ def direct_entry_phase(prob, big, lb, dev, reset, read, lm_path) -> dict:
     for label, p, pairs, path in (
             ("synthetic138_dense", prob, False, lm_path),
             ("final961_pairs", big, True, ("linearize_stream",
-                                           "residual_l2"))):
+                                           "residual_l2", "schur_pairs"))):
         runs = {}
         for where in ("default", "cuda"):
             kw = {} if where == "default" else {"device": "cuda"}
@@ -2242,6 +2323,9 @@ def direct_entry_phase(prob, big, lb, dev, reset, read, lm_path) -> dict:
         for k in path:
             need(r["launches"][k] > 0, f"9 {label}: kernel {k} not "
                  "launched")
+        if pairs:
+            need(r["launches"]["schur_pairs"] == r["launches"]["residual_l2"],
+                 f"9 {label}: not one pair-kernel launch a try")
 
     cfg = SolverConfig.for_dtype(f32, lm_switch_count=10_000)
     kw = dict(prob=lb, cfg=cfg, iter_cap=3, dtype=f32, schur="dense")

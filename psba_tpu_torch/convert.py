@@ -15,6 +15,7 @@ import torch
 
 from psba_tpu_torch import constants as CC
 from psba_tpu_torch.ops.linearize_stream import build_stream_tables
+from psba_tpu_torch.ops.schur_pairs import pair_offsets
 from psba_tpu_torch.solvers.types import OptState, ProblemArrays, torch_dtype
 from psba_tpu_torch.utils.device import resolve_device
 
@@ -43,7 +44,7 @@ def from_reference(pa_np, cams_np, pts_np, device=None, dtype=None):
     Returns (ProblemArrays, cams [C, 6], pts [P, 3]) on `device` (default:
     the CUDA device, an error without one), floating fields in `dtype`
     (default: the dtype of cams_np), with the stream tables of the kernel
-    path."""
+    path and, pairs, its bucket offsets pair_start."""
     device = resolve_device(device, "convert.from_reference")
     get = _getter(pa_np)
     dt = torch_dtype(np.asarray(cams_np).dtype if dtype is None else dtype)
@@ -66,6 +67,9 @@ def from_reference(pa_np, cams_np, pts_np, device=None, dtype=None):
     out["stream"] = st = build_stream_tables(
         cam_idx, pt_idx, out["K"].shape[0], pts.shape[0], device=device)
     out["cam_idx32"], out["pt_idx32"] = st.cam32, st.pt32
+    if "pair_bucket" in out:
+        out["pair_start"] = pair_offsets(out["pair_bucket"],
+                                         out["K"].shape[0])
     return ProblemArrays(**out), as_t(cams_np), pts
 
 

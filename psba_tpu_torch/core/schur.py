@@ -29,14 +29,22 @@ static covisibility pair list of problem.build_covis_pairs:
   ea_j   = ga_j - sum_{o: cam(o)=j} Y_o gb_{i(o)}              [C, 6]
   eb_i   = gb_i - sum_{o: pt(o)=i} W_o^T dpa_{j(o)};  dpb_i = Vinv_i eb_i
 
-The pair products are one batched (6x3)(3x6) product over the pairs and
-one bucket sum (ops.reduce.indexed_sum, in a fixed order on the card).
+On the kernel path (ProblemArrays.pair_start present) the pair products
+and their bucket sums are one call of ops.schur_pairs: on the card the
+kernel csrc/schur_pairs.cu, which walks the bucket-sorted pair list and
+sums each bucket's products in registers in a fixed order, writing S's
+layout with no per-pair tensor; on the CPU its plain version. Without
+pair_start (the XLA form: float64, backend="xla") they are
+ops.schur_pairs.schur_pairs_plain: one batched (6x3)(3x6) product over the
+pairs and one bucket sum (ops.reduce.indexed_sum, in a fixed order on the
+card).
 
-The products are plain matrix products (cuBLAS on the card), pinned to
-true float32: TF32 would keep about three decimal digits of S, which caps
-how far the float32 path converges (the reference pins Precision.HIGHEST
-for the same reason). The dense XLA family does not pin: TF32 touches
-float32 products only, and in float64 its products are DGEMM and gemv.
+Every other product is a plain matrix product (cuBLAS on the card), pinned
+to true float32, as the pair kernel's FMAs are: TF32 would keep about
+three decimal digits of S, which caps how far the float32 path converges
+(the reference pins Precision.HIGHEST for the same reason). The dense XLA
+family does not pin: TF32 touches float32 products only, and in float64
+its products are DGEMM and gemv.
 
 s_precision="high" (SolverConfig) is the reference's Precision.HIGH (3-pass
 bf16, about 2^-21 relative error on its products). Named deviation: the
@@ -53,6 +61,7 @@ from __future__ import annotations
 import torch
 
 from psba_tpu_torch.ops.reduce import indexed_sum
+from psba_tpu_torch.ops.schur_pairs import schur_pairs, schur_pairs_plain
 from psba_tpu_torch.utils.timing import host_read
 
 
@@ -348,20 +357,25 @@ def y_blocks(W: torch.Tensor, Vinv: torch.Tensor,
 
 
 def schur_S(U: torch.Tensor, Y: torch.Tensor, W: torch.Tensor, pair_o1,
-            pair_o2, pair_bucket, n_cams: int, psum=None) -> torch.Tensor:
+            pair_o2, pair_bucket, n_cams: int, psum=None,
+            pair_start=None) -> torch.Tensor:
     """S [6C, 6C] from the pair list; U [C, 6, 6] must already be damped
     (and mesh-global); `psum` sums the shard-local bucket sums. Pair
-    entries with bucket C*C (padding) add nothing."""
+    entries with bucket C*C (padding) add nothing. With `pair_start`
+    (ProblemArrays.pair_start) the bucket sums come from
+    ops.schur_pairs.schur_pairs, without it from schur_pairs_plain over
+    pair_bucket; both already in S's layout."""
     _pin_fp32_matmul()
     C = n_cams
-    contrib = torch.matmul(Y[pair_o1], W[pair_o2].transpose(1, 2))  # [N,6,6]
-    off = indexed_sum(contrib.reshape(-1, 36), pair_bucket, C * C)
+    if pair_start is not None:
+        S = schur_pairs(Y, W, pair_o1, pair_o2, pair_bucket, pair_start, C)
+    else:
+        S = schur_pairs_plain(Y, W, pair_o1, pair_o2, pair_bucket, C)
     if psum is not None:
-        off = psum(off)
-    S = -off.reshape(C, C, 6, 6)
-    ar = torch.arange(C, device=U.device)
-    S[ar, ar] += U
-    return S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
+        S = psum(S)
+    # the diagonal view over the two camera axes is [6, 6, C]
+    S.view(C, 6, C, 6).diagonal(dim1=0, dim2=2).add_(U.permute(1, 2, 0))
+    return S
 
 
 def reduced_rhs(ga: torch.Tensor, gb: torch.Tensor, Y: torch.Tensor,

@@ -194,9 +194,10 @@ def solve_distributed(prob: BAProblem, cfg: SolverConfig | None = None,
 
 
 def kernel_launches() -> dict:
-    """The launch counters of the six kernel wrappers, by name."""
+    """The launch counters of the seven kernel wrappers, by name."""
     from psba_tpu_torch.ops import cholesky, linearize_dense
     from psba_tpu_torch.ops import linearize_stream, residual_dense
+    from psba_tpu_torch.ops import schur_pairs
 
     return {
         "linearize_dense": linearize_dense.linearize_dense.launches,
@@ -205,6 +206,7 @@ def kernel_launches() -> dict:
         "jgram_dense": residual_dense.jgram_dense.launches,
         "linearize_stream": linearize_stream.linearize_stream.launches,
         "residual_l2": linearize_stream.residual_l2.launches,
+        "schur_pairs": schur_pairs.schur_pairs.launches,
     }
 
 

@@ -14,7 +14,8 @@ The kernel path (solvers.types.use_kernels: float32 by default):
     deviation, core.schur); the pair and XLA-form branches ignore it, as
     the reference's do.
   - pairs: the observation stream (ops.linearize_stream with the point
-    sums and W; inv3x3, y_blocks, schur_S, reduced_rhs, back_substitute);
+    sums and W; inv3x3, y_blocks, schur_S with its pair products in
+    ops.schur_pairs, reduced_rhs, back_substitute);
     the trial residual and the gain, the factored error_l2_diff(ex,
     new_ex), come from one ops.residual_l2 call, and ex is refreshed on
     accept.
@@ -184,6 +185,9 @@ def _lm_loop(pa, state, cfg, iter_cap, ctx, span) -> OptState:
     # the kernel path on the dense encoding; every other path carries V
     # blocks [P, 3, 3] and refreshes ex on accept
     dense3 = kernels and not pairs
+    # the pair kernel's bucket offsets (ops.schur_pairs), which need()
+    # requires on the kernel path; the XLA form keeps its batched product
+    pstart = pa.pair_start if kernels else None
     clamp = cfg.clamp_quat
     tables = (pa.obs_du, pa.obs_dv, pa.valid_d)
     valid = pa.valid
@@ -248,7 +252,8 @@ def _lm_loop(pa, state, cfg, iter_cap, ctx, span) -> OptState:
                     Vinv, vok = inv3x3(V_d)
                     Y = y_blocks(W, Vinv, pa.pt_idx)
                     S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
-                                pa.pair_bucket, C, psum=s_psum)
+                                pa.pair_bucket, C, psum=s_psum,
+                                pair_start=pstart)
                     ea = reduced_rhs(ga, gb, Y, pa.cam_idx, pa.pt_idx, C,
                                      psum=ea_psum)
                 elif not kernels:

@@ -14,7 +14,8 @@ in the model prediction).
     ops.residual_dense.gain_dense; ex stays the phase-entry value.
   - pairs: one stream pass gives V, W, gb and the Jacobians A, B as well;
     the reduced system comes from the pair family (inv3x3, y_blocks,
-    schur_S, reduced_rhs, back_substitute), every |J x|^2 from
+    schur_S with its pair products in ops.schur_pairs, reduced_rhs,
+    back_substitute), every |J x|^2 from
     core.jacobian.jmultiply, each trial residual and its gain, the factored
     error_l2_diff(ex, new_ex), from one ops.residual_l2 call; ex is
     refreshed on accept.
@@ -223,6 +224,9 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
     # the kernel path on the dense encoding; every other path has A, B for
     # jmultiply, carries V blocks [P, 3, 3] and refreshes ex on accept
     dense3 = kernels and not pairs
+    # the pair kernel's bucket offsets (ops.schur_pairs), which need()
+    # requires on the kernel path; the XLA form keeps its batched product
+    pstart = pa.pair_start if kernels else None
     valid = pa.valid
     s_psum = ((lambda x: ctx.psum_rs(x, tag="S"))
               if cfg.s_reduce == "scatter" else
@@ -315,7 +319,8 @@ def tr_run(pa: ProblemArrays, state: OptState, cfg: SolverConfig,
                 Vinv, vok = inv3x3(V_d)
                 Y = y_blocks(W, Vinv, pa.pt_idx)
                 S = schur_S(U_d, Y, W, pa.pair_o1, pa.pair_o2,
-                            pa.pair_bucket, C, psum=s_psum)
+                            pa.pair_bucket, C, psum=s_psum,
+                            pair_start=pstart)
                 ea = reduced_rhs(g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C,
                                  psum=ea_psum)
             elif not kernels:

@@ -15,6 +15,7 @@ from psba_tpu_torch.ops.linearize_stream import (
     build_stream_tables,
 )
 from psba_tpu_torch.ops.reduce import indexed_sum
+from psba_tpu_torch.ops.schur_pairs import pair_offsets
 from psba_tpu_torch.parallel.ctx import NO_MESH, MeshCtx
 from psba_tpu_torch.utils.device import resolve_device
 
@@ -25,8 +26,11 @@ from psba_tpu_torch.utils.device import resolve_device
 # counts (356 cameras x 226,730 points = 80.7M cells, 5 observations per
 # point; chip_smoke.py --cap, float32, one H100 80GB HBM3 at 700 W) the
 # dense encoding took 186.8 ms per LM iteration and 21.1 GB of device
-# memory, the pair encoding 29.7 ms and 2.1 GB. So the cap sits below that
-# shape, at the reference's own 32M cells.
+# memory, the pair encoding 29.7 ms and 2.1 GB, its products then a cuBLAS
+# batched product and an index_put_ bucket sum (85.3 ms a try at
+# Final-961's counts on that card, against 1.43 ms for the kernel that
+# replaced them, ops.schur_pairs). So the cap sits below that shape, at
+# the reference's own 32M cells.
 DENSE_MAX_ENTRIES = 32 * 1024 * 1024
 
 _NP_OF_TORCH = {torch.float32: np.float32, torch.float64: np.float64}
@@ -194,6 +198,10 @@ class ProblemArrays:
     pair_o1: torch.Tensor | None = None      # [N] int64
     pair_o2: torch.Tensor | None = None      # [N] int64
     pair_bucket: torch.Tensor | None = None  # [N] int64
+    # kernel path, pair encoding: the first pair of each bucket and, last,
+    # the end of the real pairs (ops.schur_pairs.pair_offsets), built once
+    # here
+    pair_start: torch.Tensor | None = None   # [C*C + 1] int64
     # [O] bool, False on the padding of a shard (parallel.shard); None when
     # every observation is real
     valid: torch.Tensor | None = None
@@ -219,11 +227,13 @@ class ProblemArrays:
         (SolverConfig.backend, resolved in `dtype`) says which path will
         read them: the kernel path also gets the stream tables of the
         camera-ordered walk and, dense, the grid tables with their
-        occupancy table; the XLA form gets neither, so a float64 dense
-        solve does not hold the grid. `valid` [O] (numpy bool) marks the
-        real observations of a padded problem (parallel.shard); padded
-        observations must repeat a real one, stay out of blk_idx and the
-        pair list (bucket C*C), and keep the stream sorted by point."""
+        occupancy table, pairs, the bucket offsets pair_start (raising
+        unless the pair list is sorted by bucket); the XLA form gets none,
+        so a float64 dense solve does not hold the grid. `valid` [O] (numpy
+        bool) marks the real observations of a padded problem
+        (parallel.shard); padded observations must repeat a real one, stay
+        out of blk_idx and the pair list (bucket C*C, at its end), and keep
+        the stream sorted by point."""
         device = resolve_device(device, "ProblemArrays.from_problem")
         schur = ("dense" if dense_encoding(schur, prob.n_cams, prob.n_pts)
                  else "pairs")
@@ -250,6 +260,9 @@ class ProblemArrays:
             prob = prob.with_pairs()
             enc = dict(pair_o1=i(prob.pair_o1), pair_o2=i(prob.pair_o2),
                        pair_bucket=i(prob.pair_bucket))
+            if kernels:
+                enc["pair_start"] = pair_offsets(enc["pair_bucket"],
+                                                 prob.n_cams)
         if kernels:
             stream = build_stream_tables(prob.cam_idx, prob.pt_idx,
                                          prob.n_cams, prob.n_pts,
@@ -267,10 +280,12 @@ class ProblemArrays:
     def need(self, kernels: bool) -> None:
         """Raise unless these tensors carry what the chosen path reads."""
         if kernels and (self.stream is None
-                        or (not self.pairs and self.obs_du is None)):
+                        or (not self.pairs and self.obs_du is None)
+                        or (self.pairs and self.pair_start is None)):
             raise ValueError(
                 "ProblemArrays built for the XLA form: the kernel path "
-                "needs the stream and grid tables (from_problem with "
+                "needs the stream tables, the grid tables (dense) or the "
+                "bucket offsets pair_start (pairs) (from_problem with "
                 "backend='pallas', or 'auto' in float32)")
         if not kernels and not self.pairs and self.blk_idx is None:
             raise ValueError("the dense XLA form needs blk_idx")

@@ -603,7 +603,7 @@ def test_pairs_solve_on_cuda_matches_cpu(cuda):
 # ------------------------------------------------ the float64 (XLA) path
 
 _KERNELS = ("linearize_dense", "gain_dense", "jgram_dense", "spd_solve",
-            "linearize_stream", "residual_l2")
+            "linearize_stream", "residual_l2", "schur_pairs")
 
 
 def _kernel_counts():
@@ -611,9 +611,10 @@ def _kernel_counts():
     from psba_tpu_torch.ops import linearize_dense as ld
     from psba_tpu_torch.ops import linearize_stream as ls
     from psba_tpu_torch.ops import residual_dense as rd
+    from psba_tpu_torch.ops import schur_pairs as sp
 
     fns = (ld.linearize_dense, rd.gain_dense, rd.jgram_dense, chol.spd_solve,
-           ls.linearize_stream, ls.residual_l2)
+           ls.linearize_stream, ls.residual_l2, sp.schur_pairs)
     return {k: fn.launches for k, fn in zip(_KERNELS, fns)}
 
 
@@ -680,7 +681,7 @@ def test_xla_functions_on_cuda_match_cpu(cuda):
 def test_lm_run_xla_on_cuda_matches_cpu(cuda, schur):
     """Six float64 LM iterations with backend="xla" on the card and on the
     CPU from one state: history rows and parameters to 1e-9, the same flag;
-    none of the six kernels launches."""
+    none of the seven kernels launches."""
     from psba_tpu_torch.io import bal_to_problem
     from psba_tpu_torch.solvers import OptState, ProblemArrays, SolverConfig
     from psba_tpu_torch.solvers.lm import lm_run
@@ -706,7 +707,7 @@ def test_lm_run_xla_on_cuda_matches_cpu(cuda, schur):
 
 def test_f64_solve_on_cuda_launches_no_kernel(cuda):
     """The default float64 solve on the card (the XLA form) launches none
-    of the six kernels, meets the CPU's final L2 to 1e-9 with the same
+    of the seven kernels, meets the CPU's final L2 to 1e-9 with the same
     phases, and a second run gives the same bits."""
     import psba_tpu_torch
     from psba_tpu_torch.io import bal_to_problem
