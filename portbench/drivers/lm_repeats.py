@@ -13,8 +13,9 @@ start and judges each kept answer by
              (blind to the gauge, which only the damping pins)
   iters_gap  |iterations - the reference's|, plus 1 on another flag
 
-The traffic file gives `iter_cap`, the solver settings over PSBA's float32
-defaults (`solver`) and the traced window's length (`trace_seconds`).
+The traffic file gives `iter_cap`, the solver settings over PSBA's defaults
+in the configuration's dtype (`solver`) and the traced window's length
+(`trace_seconds`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import math
 import numpy as np
 
 SPAN = "lm_run"                  # the traced span around a step
+# the stop threshold by the configuration's dtype
+STOP_THRESH = {"float32": 1e-6, "float64": 1e-12}
 
 
 def end_to_end(window: dict) -> dict:
@@ -92,11 +95,12 @@ class Program:
                     flag=int(flag))
 
 
-def reference_settings(traffic: dict) -> dict:
-    """The solver settings the traffic states over PSBA's float32
-    defaults (tau 1e-3, stop 1e-6, 64 tries, switch after 5 good steps),
-    as the reference takes them."""
-    solver = dict(tau=1e-3, stop_thresh=1e-6, max_inner=64,
+def reference_settings(traffic: dict, dtype: str) -> dict:
+    """The solver settings the traffic states over PSBA's defaults in the
+    configuration's `dtype` (tau 1e-3, 64 tries, switch after 5 good
+    steps; the stop threshold PSBA's 1e-12 in float64, 1e-6 in float32,
+    where 1e-12 sits below round-off), as the reference takes them."""
+    solver = dict(tau=1e-3, stop_thresh=STOP_THRESH[dtype], max_inner=64,
                   lm_switch_count=5)
     solver.update({k: v for k, v in traffic["solver"].items()
                    if k in solver})
@@ -124,7 +128,7 @@ class Check:
         rp = ref.Problem(arrays, device, dt)
         cams0 = torch.as_tensor(arrays["cams"], dtype=dt, device=device)
         pts0 = torch.as_tensor(arrays["pts"], dtype=dt, device=device)
-        settings = reference_settings(traffic)
+        settings = reference_settings(traffic, config["dtype"])
         settings["damping"] = ref.resolve_damping(
             rp, cams0, pts0, settings["tau"], np.dtype(config["dtype"]))
         out = ref.lm(rp, cams0, pts0, settings, matmul=matmul)

@@ -48,3 +48,17 @@ def test_tf32_rounding():
                       -3.0 - 2 ** -12], dtype=torch.float32)
     assert round_tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0,
                                       1.0 + 2 ** -9, -3.0]
+
+
+def test_settings_of_the_lm_cells_unchanged():
+    """lm_repeats' reference settings by the configuration's dtype: the
+    two float32 LM cells get what they got before float64 had room."""
+    spec = harness.cell("final961.lm")
+    drv = harness.driver(spec)
+    for name in ("ladybug138.lm", "final961.lm"):
+        s = harness.cell(name)
+        assert drv.reference_settings(s["traffic"], s["config"]["dtype"]) \
+            == dict(tau=1e-3, stop_thresh=1e-6, max_inner=64,
+                    lm_switch_count=51, iters=3)
+    f64 = drv.reference_settings(spec["traffic"], "float64")
+    assert f64["stop_thresh"] == 1e-12

@@ -46,7 +46,9 @@ def test_configs_files_and_names():
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert all(NAME.match(k) and k in cfg for k in c["reduced"])
-        assert cfg["dtype"] == "float32" and cfg["s_precision"] == "highest"
+        # the precision the configuration states, as solve takes it
+        assert cfg["dtype"] in ("float32", "float64")
+        assert cfg["s_precision"] in ("highest", "high")
 
 
 @pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
@@ -59,8 +61,12 @@ def test_workload_found_by_name(w):
     assert all(callable(getattr(drv, k)) for k in ("Program", "Check",
                                                    "end_to_end"))
     assert isinstance(drv.SPAN, str)
-    assert "proj_err" in spec["limits"]
-    assert spec["limits"].get("iters_gap", 0) == 0
+    # iterations and flags exactly, and one number of the answer: proj_err
+    # in the LM cells; the solve's proj_err does not separate its control,
+    # so it judges l2_gap (PERF.md, section 4)
+    assert spec["limits"]["iters_gap"] == 0 and len(spec["limits"]) >= 2
+    if spec["traffic"]["driver"] == "lm_repeats":
+        assert "proj_err" in spec["limits"]
     names = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in names and len(names) >= 2
     values = dict(drv.end_to_end(dict(seconds=1.0, iterations=1,

@@ -105,3 +105,27 @@ def test_bounds_of_the_dense_lm_kernels():
     assert flops == pytest.approx(828 ** 3 / 3 + 2 * 828 ** 2)
     assert peaks.bound_ms(nbytes, flops) == pytest.approx(
         1e3 * flops / 67e12)
+
+
+@pytest.mark.parametrize("shape", [dict(C=961, P=187103, O=1692975),
+                                   dict(C=138, P=19878, O=85217)])
+def test_linearize_stream_parts_sum_to_a_whole_call(shape):
+    """The camera pass and the point pass, each in its own file with its
+    own counter: bytes and operations add up to a whole call's with the
+    pair LM flags (57 C + 15 P + 24 O + 1 floats, 531 operations an
+    observation), and both are bound by their bytes, so a launch of both
+    has the bound of the whole call."""
+    kernels = harness.kernel_files()
+    cam, pts = kernels["linearize_stream"], kernels["linearize_stream_points"]
+    assert cam.RECORDS == ("linearize_stream_kernel",)
+    assert pts.RECORDS == ("linearize_stream_points_kernel",)
+    assert not tr.is_kernel("linearize_stream_points_kernel",
+                            "linearize_stream_kernel")
+    assert cam.COUNTER[2] == "launches" and pts.COUNTER[2] == "point_launches"
+    C, P, O = shape["C"], shape["P"], shape["O"]
+    (b1, f1), (b2, f2) = cam.work(shape), pts.work(shape)
+    assert b1 + b2 == 4 * (57 * C + 15 * P + 24 * O + 1)
+    assert f1 + f2 == 531 * O
+    assert peaks.bound_ms(b1, f1) + peaks.bound_ms(b2, f2) == pytest.approx(
+        peaks.bound_ms(b1 + b2, f1 + f2), rel=1e-12)
+    assert harness.read_counter(pts.COUNTER) >= 0
